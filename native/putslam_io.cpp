@@ -1,6 +1,6 @@
 // Native RGB-D dataset loader: threaded PNG decode + ordered prefetch queue.
 //
-// TPU-native runtime replacement for the reference's FileGrabber
+// Runtime replacement for the reference's FileGrabber
 // (reference: src/Grabber/fileGrabber.cpp:40-160 — reads rgb_%05d.png /
 // depth_%05d.png pairs on a grabber thread with a queue; busy-wait pop at
 // :197-210). This version decodes on a worker pool, delivers frames strictly

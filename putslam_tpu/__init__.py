@@ -1,11 +1,11 @@
-"""putslam_tpu — a TPU-native RGB-D feature-based SLAM engine.
+"""putslam_tpu — an RGB-D feature-based SLAM engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of LRMPUT/PUTSLAM
 (reference: /root/reference, single-process multi-threaded C++). Everything here
-is built TPU-first:
+is built for an accelerator:
 
 * fixed-capacity, mask-annotated arrays instead of pointer graphs,
-* batched/vmapped kernels on the MXU instead of per-feature C++ loops,
+* batched/vmapped matmuls instead of per-feature C++ loops,
 * `lax`-structured control flow under `jit` instead of OS threads + mutexes,
 * `jax.sharding.Mesh` + collectives instead of shared memory.
 

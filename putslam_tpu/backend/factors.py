@@ -1,6 +1,6 @@
 """Factor residuals, analytic Jacobians, and robust kernels.
 
-TPU-native replacement for the reference's g2o edge types
+Batched replacement for the reference's g2o edge types
 (reference: 3rdParty/g2o — ``EDGE_SE3_TRACKXYZ`` (pose-landmark 3D point),
 ``EDGE_SE3:QUAT`` (relative pose), the custom 2-pixel reprojection edge
 3rdParty/g2o/g2o/types/slam3d/edge_se3_pointxyz_reprojectionError.h:27-94;
@@ -144,7 +144,7 @@ def pp_jacobians(pose_i, pose_j, z_rel) -> Tuple[jnp.ndarray, jnp.ndarray]:
     B_inv = se3.compose(se3.inverse(pose_j), pose_i)
     # block form: Jr⁻¹ = [[X, Y],[0, X]], Ad(B⁻¹) = [[R, S],[0, R]] →
     # Jr⁻¹·Ad = [[XR, XS+YR],[0, XR]] — four batched 3×3 products instead
-    # of one batched 6×6 matmul (tiny-matmul batches lower poorly on TPU)
+    # of one batched 6×6 matmul
     X, Y = se3.se3_left_jacobian_inv_blocks(-r)
     Jj = se3._blocks_to_6x6(X, Y, jnp.zeros_like(X), X)
     R = se3.quat_to_matrix(se3.rotation_quat(B_inv))

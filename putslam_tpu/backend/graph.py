@@ -1,6 +1,6 @@
 """Fixed-capacity factor-graph storage.
 
-TPU-native replacement for the reference's g2o graph wrapper
+Batched replacement for the reference's g2o graph wrapper
 (reference: src/PoseGraph/graph_g2o.cpp — vertex/edge insertion through
 factory strings :162-364, buffered async insertion :595-677, first-vertex
 gauge fix :184-186). Vertices live in ``MapState`` (keyframe poses) and the

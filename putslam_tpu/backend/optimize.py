@@ -1,6 +1,6 @@
 """Bundle adjustment: batched Gauss-Newton with Schur complement.
 
-TPU-native replacement for the reference's g2o optimization pipeline
+Batched replacement for the reference's g2o optimization pipeline
 (reference: src/PoseGraph/graph_g2o.cpp:32-65 — LinearSolverPCG +
 BlockSolverX + Gauss-Newton; ``optimize`` :873-933 with chi²-ratio
 termination :888-908; first-vertex gauge fix :184-186; estimate copy-back
@@ -12,10 +12,10 @@ Design: all pose-landmark factors are evaluated in one batched pass
   * per-landmark 3×3 blocks (closed-form inverses, no LAPACK),
   * a dense (K·6, L·3) camera-landmark coupling matrix,
 and the landmark block is eliminated by a Schur complement whose heavy
-product is a single MXU matmul:  S = H_cc − H_cl·blkdiag(H_ll⁻¹)·H_clᵀ.
-The reduced camera system (≤ 1536²) is solved with dense Cholesky (the
-reference's PCG choice matters at CPU scale; at this size on TPU a dense
-factorization is faster and exact). Landmarks back-substitute in closed form.
+product is a single matmul:  S = H_cc − H_cl·blkdiag(H_ll⁻¹)·H_clᵀ.
+The reduced camera system (≤ 1536²) is solved with dense Cholesky (exact
+at this size, where the reference uses PCG). Landmarks back-substitute in
+closed form.
 
 State updates are pure: poses retract on the right, landmarks add; masks
 keep fixed/invalid entries frozen. This one function is the whole
@@ -380,7 +380,7 @@ def gauss_newton(bcfg: BackendConfig,
 
 def schur_subtrahend_mm(obs_kf, obs_lm, F, K: int, L: int):
     """The Schur subtrahend ``S_sub = H_cl·H_ll⁻¹·H_clᵀ`` (K·6, K·6) built
-    entirely with MXU matmuls from the *whitened* per-observation coupling
+    entirely with matmuls from the *whitened* per-observation coupling
     F = (w·JpᵀJl)·chol(H_ll⁻¹) — never scattering into a (K, L, 6, 3)
     buffer (that scatter is XLA-serialized at runtime and a compile-time
     bomb at fr1 capacities). Two products:
@@ -418,7 +418,7 @@ def gauss_newton_mm(bcfg: BackendConfig,
                     lm_gen: jnp.ndarray = None,
                     kf_gen: jnp.ndarray = None,
                     cam: CameraConfig = None) -> BAResult:
-    """Dense Schur rebuilt for the MXU: the camera-landmark coupling is
+    """Dense Schur rebuilt from matmuls: the camera-landmark coupling is
     never scattered into a (K, L, 6, 3) buffer (XLA lowers that scatter
     to a serialized update stream — the single most expensive op of the
     scatter-based path, and a compile-time bomb at fr1 capacities).
@@ -428,7 +428,7 @@ def gauss_newton_mm(bcfg: BackendConfig,
 
     is built by one one-hot matmul — A = P ⊙ F row-expanded (M, 18K),
     G' = Aᵀ·Q with P/Q the keyframe/landmark one-hot operators — and the
-    Schur subtrahend is a single MXU product S_sub = G·Gᵀ.
+    Schur subtrahend is a single product S_sub = G·Gᵀ.
 
     Precision contract: S (curvature) is accumulated from bfloat16 inputs
     in float32 — it only shapes the step *direction*. The gradient b is
@@ -483,9 +483,7 @@ def gauss_newton_mm(bcfg: BackendConfig,
 
     # --- landmark-axis compaction (static): the ≤ LC valid landmarks get
     # compact slots; every obs↔landmark gather/scatter in the iteration
-    # becomes a one-hot f32 matmul (M-row gathers/scatters of the
-    # observation-capacity store cost ~1.3 ms EACH on this TPU — they, not
-    # FLOPs, dominated the BA call) ---------------------------------------
+    # becomes a one-hot f32 matmul ------------------------------------------
     lm_blocked = 0 < bcfg.ba_lm_block < L
     LC = bcfg.ba_lm_block if lm_blocked else L
     if lm_blocked:
@@ -502,35 +500,35 @@ def gauss_newton_mm(bcfg: BackendConfig,
         lm_ok_obs = lm_valid[g.obs_lm]
     Qf = jax.nn.one_hot(cl_obs, LC + 1, dtype=f32)[:, :LC]      # (M, LC)
 
+    # Every f32 one-hot product below stands in for an exact gather or
+    # segment sum, so each pins Precision.HIGHEST: at DEFAULT a GPU may run
+    # an f32 dot in TF32 (~10 mantissa bits), which would round the landmark
+    # positions read into every residual, the gradient b, and the generation
+    # counters the stale-edge gates compare with ==.
+    hi = jax.lax.Precision.HIGHEST
+
     def _obs_from_lm(x_c):
         """(LC, d) compact landmark values → (M, d) per-observation rows
-        (zero for dropped landmarks) via one MXU product."""
+        (zero for dropped landmarks) via one one-hot product."""
         return jax.lax.dot_general(
             Qf, x_c.reshape(LC, -1),
-            dimension_numbers=(((1,), (0,)), ((), ())))
+            dimension_numbers=(((1,), (0,)), ((), ())), precision=hi)
 
     def _lm_from_obs(x_m):
         """(M, d) per-observation values → (LC, d) segment sums."""
         return jax.lax.dot_general(
-            Qf, x_m, dimension_numbers=(((0,), (0,)), ((), ())))
+            Qf, x_m, dimension_numbers=(((0,), (0,)), ((), ())),
+            precision=hi)
 
-    # generation-equality gates use exact == over f32 one-hot matmuls —
-    # HIGHEST precision keeps them exact on backends whose DEFAULT f32 dot
-    # rounds operands to bf16 (generation counters > 256 would silently
-    # fail the gate there). These run once per call, outside the GN scan.
     gate = g.obs_valid & lm_ok_obs
     if lm_gen is not None:
         lm_gen_c = lm_gen[sel_lm].astype(f32)                   # (LC,)
-        gen_at_obs = jax.lax.dot_general(
-            Qf, lm_gen_c[:, None],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)[:, 0]
+        gen_at_obs = _obs_from_lm(lm_gen_c)[:, 0]
         gate = gate & (gen_at_obs == g.obs_gen.astype(f32))
     if kf_gen is not None:
         kfgen_at_obs = jax.lax.dot_general(
             P_full, kf_gen.astype(f32)[:, None],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)[:, 0]
+            dimension_numbers=(((1,), (0,)), ((), ())), precision=hi)[:, 0]
         gate = gate & (kfgen_at_obs == g.obs_kfgen.astype(f32))
 
     pp_gate = g.pp_valid
@@ -545,7 +543,7 @@ def gauss_newton_mm(bcfg: BackendConfig,
         kf_pose, lm_pos_c = carry
         kf_p = jax.lax.dot_general(                             # (M, 7)
             P_full, kf_pose, dimension_numbers=(((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)
+            precision=hi)
         lm_p = _obs_from_lm(lm_pos_c)                           # (M, 3)
         r, Jp, Jl = factors.assemble_obs_terms(kf_p, lm_p, g.obs_xyz,
                                                bcfg.error_type, fu, fv)
@@ -571,11 +569,11 @@ def gauss_newton_mm(bcfg: BackendConfig,
         bl = -jnp.einsum("m,mri,mr->mi", w, Jl, r)              # (M, 3)
 
         # camera-side segment sums as one (KC, M)×(M, 42) matmul (exact:
-        # one-hot rows have a single 1.0; KC is small so this is ~free on
-        # the MXU)
+        # one-hot rows have a single 1.0)
         k_pack = jnp.concatenate([JpT_Jp.reshape(M, 36), bp], axis=1)
         k_sums = jax.lax.dot_general(
-            Pf, k_pack, dimension_numbers=(((0,), (0,)), ((), ())))  # (KC, 42)
+            Pf, k_pack, dimension_numbers=(((0,), (0,)), ((), ())),
+            precision=hi)                                       # (KC, 42)
         H_cc_diag = k_sums[:, :36].reshape(KC, 6, 6)
         b_c = k_sums[:, 36:42]
         # L-side segment sums as one (LC, M)×(M, 12) matmul (exact one-hot)
@@ -629,8 +627,8 @@ def gauss_newton_mm(bcfg: BackendConfig,
         t = jnp.einsum("lab,lb->la", H_ll_inv, b_l)             # (LC, 3)
         c_m = jnp.einsum("mia,ma->mi", C, _obs_from_lm(t))      # (M, 6)
         b_red = (b_c - jax.lax.dot_general(
-            Pf, c_m, dimension_numbers=(((0,), (0,)), ((), ())))
-        ).reshape(KC * 6)
+            Pf, c_m, dimension_numbers=(((0,), (0,)), ((), ())),
+            precision=hi)).reshape(KC * 6)
 
         # --- gauge fixing + solve (same robustness contract as the
         # scatter path). dead_c: unpaired compact slots (windowed) or
@@ -659,7 +657,8 @@ def gauss_newton_mm(bcfg: BackendConfig,
         # per-observation camera step through the *compact* one-hot (frozen
         # observations read a zero step, exactly as before)
         dc_obs = jax.lax.dot_general(
-            Pf, dc_mat, dimension_numbers=(((1,), (0,)), ((), ())))  # (M, 6)
+            Pf, dc_mat, dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=hi)                                       # (M, 6)
         u_m = jnp.einsum("mia,mi->ma", C, dc_obs)               # (M, 3)
         Hlc_dc = _lm_from_obs(u_m)                              # (LC, 3)
         dl = jnp.einsum("lab,lb->la", H_ll_inv, b_l - Hlc_dc)
@@ -730,7 +729,7 @@ def pose_covariances(bcfg: BackendConfig,
 
     Returns (K, 6, 6); fixed/invalid keyframes get zero blocks.
 
-    Built with the MXU coupling (``coupling_mm``) — the scatter-based build
+    Built with the matmul coupling (``schur_subtrahend_mm``) — the scatter-based build
     was a compile/runtime bomb at fr1 capacities. Includes pose-pose edge
     information (the reference extracts covariances from the full Hessian,
     graph_g2o.cpp:1324-1390)."""

@@ -68,11 +68,6 @@ class DetectorConfig:
     # slightly stronger spatial spread); "exact" = the reference's
     # per-cell top-k verbatim (matcherOpenCV.cpp:118-180, ~4× cap cost)
     grid_policy: str = "subtile"
-    # fused Pallas FAST+NMS kernel (ops/fast_pallas.py): bit-exact with the
-    # XLA path; measured AT PARITY on the v5e (0.057 vs 0.016 ms — XLA's
-    # fusion already saturates this stage), kept selectable as the
-    # committed Pallas integration path
-    use_pallas_detect: bool = False
     patch_size: int = 32             # descriptor patch (rBRIEF standard)
     descriptor: str = "brief"        # "brief" (rBRIEF) | "ldb" (grid tests, src/LDB)
     border: int = 20                 # keypoint exclusion border
@@ -215,20 +210,16 @@ class BackendConfig:
     # observations are overwritten once it wraps, which (with window fixing)
     # is the marginalization behavior of featuresMap.cpp:1056-1104. 8192
     # ≈ 80 keyframes × ~100 measurements — comfortably covers the active
-    # window; 64k (round-2 default) made the BA program a compile bomb on
-    # TPU for no accuracy gain.
+    # window; 64k (round-2 default) bought no accuracy.
     max_observations: int = 8192
     # GN iterations per optimize() call. The reference's continuous thread
-    # runs 1-iteration passes (featuresMap.cpp:881-1026); at the every-5-
-    # keyframes cadence 2 iterations measured the best fps/ATE trade on TPU
-    # (gn=4 costs 30 % fps for no ATE gain; the end-of-run final polish
-    # equalizes all settings anyway).
+    # runs 1-iteration passes (featuresMap.cpp:881-1026); the end-of-run
+    # final polish runs final_gn_iterations over the whole graph.
     gn_iterations: int = 2
     # linear solver for the reduced camera system:
-    # "dense_schur_mm" (default) — MXU formulation: the whitened coupling G
-    #   is built by one-hot matmuls and the Schur subtrahend is a single
-    #   G·Gᵀ product; no (K, L) scatter exists (that scatter is both the
-    #   runtime hog and a compile-time bomb on TPU). Curvature accumulates
+    # "dense_schur_mm" (default) — matmul formulation: the whitened
+    #   coupling G is built by one-hot matmuls and the Schur subtrahend is a
+    #   single G·Gᵀ product; no (K, L) scatter exists. Curvature accumulates
     #   from bf16 in f32 — the f32-exact gradient pins the fixed point.
     # "dense_schur" — scatter-based f32 reference implementation.
     # "pcg" — matrix-free block-Jacobi CG (the reference's LinearSolverPCG
@@ -244,9 +235,7 @@ class BackendConfig:
     ba_window: int = 64
     # Landmark-axis compaction for dense_schur_mm: the ≤ ba_lm_block VALID
     # landmarks are gathered into a compact block and every obs↔landmark
-    # gather/scatter becomes a one-hot f32 matmul on the MXU (plain row
-    # gathers/scatters of the 8192-slot store cost ~1.3 ms EACH on TPU —
-    # they, not FLOPs, dominated the BA call). Surplus valid landmarks
+    # gather/scatter becomes a one-hot f32 matmul. Surplus valid landmarks
     # beyond the block are gracefully dropped from that BA call (their
     # edges gate out). 0 disables (full-L axis).
     ba_lm_block: int = 2048
@@ -377,9 +366,8 @@ def tiny_test_config() -> SlamConfig:
         # inlier gate must be correspondingly looser than the fr1 default
         ransac=RansacConfig(n_hypotheses=128, inlier_threshold_euclidean=0.10),
         map=MapConfig(max_landmarks=512, max_keyframes=32),
-        # scatter-based dense path on the tiny CPU config (the mm path's
-        # one-hot matmuls only pay off on the MXU; solver equivalence is
-        # covered by tests/test_round3.py::test_solvers_agree)
+        # scatter-based dense path on the tiny CPU config (solver
+        # equivalence is covered by tests/test_round3.py::test_solvers_agree)
         backend=BackendConfig(max_pose_pose_edges=64, max_observations=4096,
                               pcg_iterations=32, solver="dense_schur"),
     )

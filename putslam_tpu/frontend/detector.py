@@ -1,6 +1,6 @@
 """Multi-scale keypoint detection + description + depth lifting.
 
-TPU-native replacement for the reference's detect/describe front-end
+Batched replacement for the reference's detect/describe front-end
 (reference: src/Matcher/matcher.cpp:17-64 ``detectInitFeatures``,
 matcherOpenCV.cpp:118-196 — grid-capped FAST/ORB detection, ORB description;
 octave bookkeeping matcher.cpp:283-338; depth lifting + gates
@@ -27,7 +27,7 @@ from putslam_tpu.ops import brief, fast
 
 
 class Features(NamedTuple):
-    """Fixed-capacity per-frame feature set (the TPU analog of the
+    """Fixed-capacity per-frame feature set (the batched analog of the
     reference's parallel vectors of cv::KeyPoint + Mat descriptors +
     Eigen 3D points, matcher.h:24-120)."""
 
@@ -93,7 +93,6 @@ def detect_and_describe(cfg: SlamConfig, gray: jnp.ndarray,
             img, det.fast_threshold, det.nms_radius,
             det.grid_rows, det.grid_cols, Nl,
             grid_policy=det.grid_policy,
-            use_pallas=det.use_pallas_detect,
         )
         # exclude border keypoints (patch must fit; reference border policy)
         b = float(max(det.border // max(int(scale), 1), brief.PATCH // 2 + 1))
@@ -114,7 +113,7 @@ def detect_and_describe(cfg: SlamConfig, gray: jnp.ndarray,
     octv = jnp.concatenate(all_oct)
     valid = jnp.concatenate(all_valid)
     # ONE fused descriptor matmul over every level's patches (the per-level
-    # split above only affects the cheap blur/gather, so the MXU sees a
+    # split above only affects the cheap blur/gather, so the matmul sees a
     # single (max_features, P²) batch instead of L small ones)
     desc, ang = brief.describe_patches(
         jnp.concatenate(all_patch), kind=det.descriptor)

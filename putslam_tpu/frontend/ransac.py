@@ -1,6 +1,6 @@
 """Hypothesis-parallel RANSAC for SE(3) from 3D-3D correspondences.
 
-TPU-native replacement for the reference's sequential adaptive RANSAC
+Batched replacement for the reference's sequential adaptive RANSAC
 (reference: src/TransformEst/RANSAC.cpp:50-174 — depth-validity prefilter
 :64-74, 3-pair sampling :180-205, Umeyama fit :207-244, inlier-error models
 :251-436, adaptive iteration count :457-461, best-inlier refit :152-158,
@@ -11,7 +11,7 @@ replaced by a *fixed batch of H hypotheses evaluated at once*: sampling is a
 Gumbel top-k per hypothesis, model fitting is the batched quaternion Kabsch,
 and inlier counting is one (H, N) masked distance computation. H is chosen
 larger than the reference's worst-case adaptive count, so this is strictly
-more robust per call while mapping onto dense TPU compute.
+more robust per call while mapping onto dense batched compute.
 
 Error models mirror the reference: Euclidean (errorVersion 0), reprojection
 (1), both (2), adaptive depth-scaled Euclidean (4) — RANSAC.cpp:251-436.
@@ -52,7 +52,7 @@ def _pair_errors(cfg: RansacConfig, cam: Optional[CameraConfig],
 
     Structure-of-arrays throughout: the predicted points are computed as
     (..., N) component arrays (se3.apply_soa) — never as an (..., N, 3)
-    tensor whose size-3 minor dim would be tile-padded 42× on TPU."""
+    tensor with a size-3 minor dim."""
     Te = T[..., None, :]                                  # (..., 1, 7)
     x, y, z = se3.apply_soa(Te, p[..., 0], p[..., 1], p[..., 2])  # (..., N)
     dx, dy, dz = x - q[..., 0], y - q[..., 1], z - q[..., 2]
@@ -113,9 +113,8 @@ def estimate(cfg: RansacConfig, cam: Optional[CameraConfig],
     n_valid = jnp.sum(valid)
 
     # --- sample `used_pairs` valid indices per hypothesis -----------------
-    # Weighted-over-valid via prefix-sum + binary search: O(H·k·log N), far
-    # cheaper than Gumbel-top-k whose (H, N) top_k lowers to a full per-row
-    # sort on TPU (measured 8 ms/frame at H=1024, N=512). Sampling is with
+    # Weighted-over-valid via prefix-sum + binary search: O(H·k·log N),
+    # cheaper than Gumbel-top-k, whose (H, N) top_k is a per-row sort. Sampling is with
     # replacement; a duplicated index yields a degenerate hypothesis that
     # simply scores ~0 inliers and loses the argmax.
     if cfg.quality_tau > 0.0 and quality is not None:

@@ -1,6 +1,6 @@
 """Batched pinhole camera model with radial-tangential distortion.
 
-TPU-native replacement for the reference's per-point helpers
+Batched replacement for the reference's per-point helpers
 (reference: src/RGBD/RGBD.cpp:18-392 — ``keypoints2Dto3D``/``point3Dto2D``/
 ``removeImageDistortion`` via cv::undistortPoints — and
 src/Grabber/depthSensorModel.cpp:4-118, the ``DepthSensorModel`` pinhole).

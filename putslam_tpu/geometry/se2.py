@@ -1,6 +1,6 @@
 """Batched SE(2) pose math + a planar pose-graph Gauss-Newton solver.
 
-TPU-native counterpart of the reference's SE(2) graph types
+Counterpart of the reference's SE(2) graph types
 (reference: include/putslam/Defs/putslam_defs.h:244-529 — ``VertexSE2`` /
 ``EdgeSE2`` declarations used by the planar variants of the pose graph;
 SURVEY §7 "keep if cheap"). A pose is ``(..., 3)`` = [x, y, θ]; the whole

@@ -1,6 +1,6 @@
 """Batched SE(3) / quaternion math.
 
-TPU-native replacement for the reference's Eigen-based pose types
+Batched replacement for the reference's Eigen-based pose types
 (reference: include/putslam/Defs/putslam_defs.h:28-40 — ``Mat34`` poses,
 quaternion helpers scattered through featuresMap.cpp / transformEst.h).
 
@@ -159,9 +159,8 @@ def apply_soa(p, px, py, pz):
 
     Returns (x, y, z) component arrays. Use this instead of ``apply`` when
     the broadcasted result would carry a size-3 trailing axis over a large
-    batch (e.g. RANSAC's (H, N, 3) predicted points): TPU pads tiny minor
-    dims to full (8, 128) vector tiles, so component arrays keep the batch
-    on the lane axis with zero padding waste."""
+    batch (e.g. RANSAC's (H, N, 3) predicted points): component arrays
+    keep the large batch as the minor axis."""
     qw, qx, qy, qz = p[..., 3], p[..., 4], p[..., 5], p[..., 6]
     # v' = v + 2 qw (qv × v) + 2 qv × (qv × v), expanded per component
     tx = 2.0 * (qy * pz - qz * py)

@@ -1,6 +1,6 @@
 """Depth-sensor uncertainty models, batched.
 
-TPU-native replacement for DepthSensorModel's covariance machinery
+Batched replacement for DepthSensorModel's covariance machinery
 (reference: src/Grabber/depthSensorModel.cpp — ``computeCov`` :28-36,
 ``informationMatrix`` :48-59, normal-based :62-76 and RGB-gradient-based
 :79-95 anisotropic scalings) and the Strasdat depth-scaled heuristic
@@ -51,7 +51,7 @@ def point_covariance(cam: CameraConfig, uv, depth):
 
 
 def inv3x3(M, eps: float = 1e-30):
-    """Batched closed-form 3x3 inverse via adjugate (TPU-friendly, no LAPACK)."""
+    """Batched closed-form 3x3 inverse via adjugate (elementwise, no LAPACK)."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -78,7 +78,7 @@ def information_matrix(cam: CameraConfig, uv, depth):
 
 def chol3x3(M, eps: float = 1e-12):
     """Batched closed-form lower Cholesky factor L with M = L·Lᵀ for
-    symmetric PSD 3×3 matrices (TPU-friendly, no LAPACK). Used to *whiten*
+    symmetric PSD 3×3 matrices (elementwise, no LAPACK). Used to *whiten*
     residuals/Jacobians against a full information matrix: with
     Info = L·Lᵀ, the whitened r' = Lᵀr, J' = LᵀJ reduce the generalized
     least squares problem to the scalar-weighted machinery."""

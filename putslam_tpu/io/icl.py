@@ -1,6 +1,6 @@
 """ICL-NUIM dataset preparation: POV-Ray output → TUM-format sequence.
 
-TPU-native replacement for the reference's dataset tooling
+Batched replacement for the reference's dataset tooling
 (reference: scripts/prepareDatasetICL.py and
 scripts/convertICLdepthToDepthImage.py — ICL's ``scene_NNNN.depth`` text
 files store per-pixel *euclidean ray distances*; the conversion projects

@@ -6,8 +6,9 @@ The reference's I/O path is a native grabber thread + queue
 strictly in order through a bounded condvar queue. Python only moves the
 filled buffers to the device.
 
-Falls back cleanly when the library is absent (``available()`` → False);
-``build()`` compiles it with the in-tree Makefile.
+The library is not committed: ``build()`` compiles it with the in-tree
+Makefile at first use. Where that fails (no compiler or libpng),
+``available()`` is False and callers fall back to the numpy PNG reader.
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     if not os.path.exists(_SO_PATH) and not build():
         return None
-    lib = ctypes.CDLL(_SO_PATH)
+    try:
+        lib = ctypes.CDLL(_SO_PATH)
+    except OSError:      # built elsewhere: a shared library it needs is absent
+        return None
     lib.ps_loader_create.restype = ctypes.c_void_p
     lib.ps_loader_create.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),

@@ -1,6 +1,6 @@
 """RGB-D SLAM trajectory interop.
 
-TPU-native counterpart of the reference's trajectory exchange
+Counterpart of the reference's trajectory exchange
 (reference: src/PoseGraph/graph_g2o.cpp:818-832 ``export2RGBDSLAM`` —
 one ``timestamp tx ty tz qx qy qz qw`` line per SE3 vertex — and
 :835-869 ``importRGBDSLAM`` — read the trajectory back as a pose graph

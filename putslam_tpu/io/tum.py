@@ -1,12 +1,12 @@
 """TUM RGB-D dataset player + trajectory I/O.
 
-TPU-native equivalent of the reference's ``FileGrabber``
+Equivalent of the reference's ``FileGrabber``
 (src/Grabber/fileGrabber.cpp:40-160 — reads a ``matched`` association file and
 ``rgb_%05d.png`` / ``depth_%05d.png`` pairs; ``getStartingSensorPose``
 :223-237) plus the timestamp association done by scripts/associate.py and the
 TUM-format trajectory writer (PUTSLAM.cpp:1006-1016).
 
-The host side (PNG decode, association) is plain numpy/PIL; frames are yielded
+The host side (PNG decode, association) is plain numpy; frames are yielded
 as float arrays ready to ship to the device. Depth is converted to metres with
 ``depthImageScale`` (resources/datasetConfig/*.xml, default 5000).
 """
@@ -102,8 +102,9 @@ class TumDataset:
 
     def __iter__(self) -> Iterator[TumFrame]:
         """Iterate frames; uses the native threaded prefetcher
-        (native/putslam_io.cpp, the FileGrabber-equivalent C++ runtime) when
-        built, falling back to PIL decode."""
+        (native/putslam_io.cpp, the FileGrabber-equivalent C++ runtime),
+        built from source at first use, and falls back to the numpy PNG
+        reader (io/png.py) where it cannot be built."""
         from putslam_tpu.io import native_loader
 
         if len(self) and native_loader.available():

@@ -6,7 +6,7 @@ Lets a user of the reference point this engine at their existing
 parsed by tinyXML2 in PUTSLAM.cpp:454-576 and the nested Config ctors;
 camera/dataset chain putslamfileModel.xml → datasetConfig/<seq>.xml).
 
-Only parameters with a counterpart in the TPU engine are mapped; everything
+Only parameters with a counterpart in this engine are mapped; everything
 else keeps the dataclass defaults (documented in config.py).
 """
 

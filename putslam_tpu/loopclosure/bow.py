@@ -1,12 +1,12 @@
 """Binary bag-of-words place recognition.
 
-TPU-native replacement for the reference's FAB-MAP 2.0 pipeline
+Batched replacement for the reference's FAB-MAP 2.0 pipeline
 (reference: src/VisualPlaceRecognition/visualplacerecognition.cpp:60-129 —
 detector + BoW descriptor against a pretrained vocabulary + Chow-Liu-tree
 inference; vendored openFABMAP). FAB-MAP's generative model needs an
-offline-trained vocabulary + co-occurrence tree; the TPU-native design uses
+offline-trained vocabulary + co-occurrence tree; this design uses
 a fixed random binary vocabulary with tf-idf-weighted cosine scoring — the
-standard DBoW-class approach — whose whole scoring pass is two MXU matmuls
+standard DBoW-class approach — whose whole scoring pass is two matmuls
 (descriptor→word assignment, signature×signature similarity), trivially
 shardable across devices for large maps.
 
@@ -89,7 +89,7 @@ def init_queue(capacity: int) -> LCQueue:
     return LCQueue(
         kf_a=jnp.full((capacity,), -1, jnp.int32),
         kf_b=jnp.full((capacity,), -1, jnp.int32),
-        prob=jnp.full((capacity,), -jnp.inf),
+        prob=jnp.full((capacity,), -jnp.inf, jnp.float32),
     )
 
 

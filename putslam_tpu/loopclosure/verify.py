@@ -1,6 +1,6 @@
 """Geometric verification of loop-closure candidates.
 
-TPU-native replacement for the reference's LC verification thread
+Batched replacement for the reference's LC verification thread
 (reference: src/Map/featuresMap.cpp:733-873 ``loopClosure`` — gather
 MapFeatures observed in both frames (> minNumberOfFeaturesLC = 35),
 descriptor matching via ``matchFeatureLoopClosure`` matcher.cpp:802-861,
@@ -8,7 +8,7 @@ RANSAC, acceptance when matching ratio > matchingRatioThresholdLC = 0.4,
 then measurement merge).
 
 Fixed-shape version: each keyframe's observation set is gathered from the
-edge store (bounded to LC_SET), descriptors matched with one MXU matmul,
+edge store (bounded to LC_SET), descriptors matched with one matmul,
 and the relative transform estimated by the hypothesis-parallel RANSAC on
 the *camera-frame measured points* of both keyframes — independent of the
 drifted world positions, exactly what the correction edge must encode.

@@ -1,6 +1,6 @@
 """Frame-to-frame visual odometry — the minimum end-to-end SLAM slice.
 
-TPU-native replacement for the reference's matching-based VO
+Batched replacement for the reference's matching-based VO
 (reference: src/Matcher/matcher.cpp:67-94 ``runVO`` dispatch and :452-516
 ``match``: detect → describe → BF cross-check match → lift to 3D → RANSAC;
 driver loop src/PUTSLAM/PUTSLAM.cpp:677-930 with the 0.1 m translation
@@ -105,9 +105,8 @@ def vo_step(cfg: SlamConfig, key: jax.Array, prev: Features, curr: Features,
                         res.n_inliers, res.inlier_ratio, ok)
 
 
-DETECT_CHUNK = 4  # frames detected per vmapped map step (bounds live HBM;
-                  # measured fastest at 4 on v5e — larger chunks thrash the
-                  # gather working set, smaller ones pay dispatch overhead)
+DETECT_CHUNK = 4  # frames detected per vmapped map step (bounds the live
+                  # device memory of a batched detection)
 
 
 @functools.partial(jax.jit, static_argnums=(0,))
@@ -117,8 +116,7 @@ def detect_sequence(cfg: SlamConfig, grays: jnp.ndarray, depths: jnp.ndarray
 
     Per-frame detection has no cross-frame dependency, so it runs *batched*
     (vmap over DETECT_CHUNK-frame blocks under ``lax.map``) instead of the
-    reference's one-frame-at-a-time loop — this is where the MXU/VPU get
-    their utilization from on playback workloads."""
+    reference's one-frame-at-a-time loop."""
     return jax.lax.map(
         lambda fr: detect_and_describe(cfg, fr[0], fr[1]),
         (grays, depths), batch_size=min(DETECT_CHUNK, grays.shape[0]))
@@ -135,7 +133,7 @@ def vo_sequence(cfg: SlamConfig, grays: jnp.ndarray, depths: jnp.ndarray,
     identity — the reference takes it from the dataset's initialPosition,
     fileGrabber.cpp:223-237).
 
-    TPU-first structure: the only *inherently sequential* part of
+    Structure: the only *inherently sequential* part of
     frame-to-frame VO is composing the relative poses — an associative
     product. Everything else (detection, matching, RANSAC between
     consecutive pairs) is independent per frame pair, so it runs as one

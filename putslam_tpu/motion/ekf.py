@@ -1,6 +1,6 @@
 """Decaying-velocity EKF motion model.
 
-TPU-native replacement for the reference's 13-state EKF
+Batched replacement for the reference's 13-state EKF
 (reference: src/MotionModel/decayingVelocityModel.cpp:3-215 —
 state = [position(3), velocity(3), quaternion(4), angular velocity(3)],
 ``predict`` :28-40 with velocity decay, ``correct`` :43-121 with a 7-dim

@@ -1,6 +1,6 @@
 """Oriented binary descriptors (steered BRIEF / ORB-class), batched.
 
-TPU-native replacement for the reference's cv::ORB descriptor stage and the
+Batched replacement for the reference's cv::ORB descriptor stage and the
 vendored LDB (reference: src/Matcher/matcherOpenCV.cpp:182-196
 ``describeFeatures``; src/LDB/ldb.cpp — 0/1 intensity/gradient tests; multi-
 octave handling matcher.cpp:283-338).
@@ -10,7 +10,7 @@ dynamic-slice gather) → intensity-centroid orientation (ORB's moments) →
 256 pairwise intensity tests at coordinates rotated by the orientation,
 bilinearly sampled *inside the patch* so the whole descriptor stage is a
 (N, 256)-shaped dense computation. Descriptors are stored as ±1 int8 so
-Hamming distance becomes an int8 MXU matmul (see ops/matching.py).
+Hamming distance becomes a bf16 matmul (see ops/matching.py).
 """
 
 from __future__ import annotations
@@ -90,10 +90,10 @@ def orientations(patches: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# MXU-friendly steering: orientation quantized into N_BINS; for each bin the
+# Matmul steering: orientation quantized into N_BINS; for each bin the
 # rotated bilinear sampling of all 2×256 test points is folded into ONE
 # constant (P², 256) matrix D_bin = W_q − W_p, so the whole descriptor stage
-# is   bits = sign(patch_flat @ [D_0 | … | D_{B-1}])  — a single MXU matmul —
+# is   bits = sign(patch_flat @ [D_0 | … | D_{B-1}])  — a single matmul —
 # followed by a per-keypoint bin select. (ORB steers with 12° granularity;
 # 24 bins = 15° is equivalent quality.)
 # ---------------------------------------------------------------------------
@@ -138,7 +138,7 @@ def _make_steer_bank() -> np.ndarray:
     return bank
 
 
-# bf16 keeps the MXU at full rate; the descriptor is a sign test, so the
+# bf16 operands run at the matrix units' full rate; the descriptor is a sign test, so the
 # ~3-decimal-digit mantissa is ample (bits near zero flip under noise anyway)
 _STEER_BANK = _make_steer_bank()  # numpy (see note above)
 
@@ -146,7 +146,7 @@ _STEER_BANK = _make_steer_bank()  # numpy (see note above)
 def _make_moment_cols() -> np.ndarray:
     """(P*P, 2) columns computing the ORB intensity-centroid moments
     (m10, m01) over the radius-15 disc — appended to the descriptor bank so
-    orientation falls out of the SAME MXU matmul as the steering tests."""
+    orientation falls out of the SAME matmul as the steering tests."""
     disc = _DISC
     return np.stack([(disc * _XREL_NP).reshape(-1),
                      (disc * _YREL_NP).reshape(-1)], axis=1).astype(np.float32)
@@ -258,7 +258,7 @@ _FUSED_BANKS: dict = {}
 def _get_fused_bank(kind: str) -> jnp.ndarray:
     """(P*P, N_BINS*256 + 2) bf16 constant: all steering bins' test columns
     followed by the two orientation-moment columns (m10, m01), so descriptor
-    tests AND orientation come out of one MXU matmul.
+    tests AND orientation come out of one matmul.
 
     The test columns are pre-composed with the box blur (see _blur_matrix),
     so callers pass RAW patches — no blurred image is ever built. The
@@ -277,9 +277,9 @@ def _get_fused_bank(kind: str) -> jnp.ndarray:
 def describe_patches(patches: jnp.ndarray, kind: str = "brief"):
     """(N, P, P) RAW patches → (desc (N, 256) int8 ±1, angles (N,)).
 
-    One MXU matmul computes every orientation bin's 256 test responses plus
+    One matmul computes every orientation bin's 256 test responses plus
     the intensity-centroid moments; the per-keypoint bin is then selected
-    with a one-hot contraction (MXU-friendly — no gather). BRIEF's
+    with a one-hot contraction (no gather). BRIEF's
     pre-smoothing is pre-composed into the bank constant, so no blurred
     image is needed. Responses are sign tests, so the bf16 output precision
     is ample."""
@@ -329,7 +329,7 @@ def describe(img: jnp.ndarray, uv: jnp.ndarray, valid: jnp.ndarray,
     for API compatibility, radius 2 is baked in).
 
     Returns (desc (N,256) int8 ±1, angles (N,) float32). Invalid keypoints
-    get zero descriptors (so their MXU dot products can never win a match).
+    get zero descriptors (so their dot products can never win a match).
     """
     patches = extract_patches(img, uv)
     desc, ang = describe_patches(patches, kind)

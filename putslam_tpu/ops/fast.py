@@ -1,6 +1,6 @@
-"""FAST corner detection as dense whole-image VPU ops.
+"""FAST corner detection as dense whole-image elementwise ops.
 
-TPU-native replacement for the reference's cv::FastFeatureDetector /
+Batched replacement for the reference's cv::FastFeatureDetector /
 cv::ORB detection with per-grid-cell response capping
 (reference: src/Matcher/matcherOpenCV.cpp:97-180 — ``detectFeatures`` with
 gridRows×gridCols cells, per-cell response sort + cap; DBScan declustering
@@ -8,7 +8,7 @@ src/Matcher/dbscan.cpp:79-123).
 
 Instead of per-pixel branching, the segment test runs as a stack of shifted
 image comparisons — pure elementwise arithmetic over the full frame, which XLA
-fuses into a handful of VPU loops. Non-max suppression is a windowed max;
+fuses into a handful of loops. Non-max suppression is a windowed max;
 the detection cap is per-cell top-k followed by a global top-k (exactly the
 grid policy of the reference, but branch-free).
 
@@ -53,9 +53,9 @@ def fast_score_map(gray: jnp.ndarray, threshold: float) -> jnp.ndarray:
     t = jnp.float32(threshold)
     # Accumulate everything in ONE unrolled pass over the 16 circle offsets:
     # per-pixel 16-bit masks of bright/dark flags + the SAD excess sums.
-    # All elementwise over (H, W) — XLA fuses the chain into a few VPU loops
-    # with no (16, H, W) intermediates (the stacked-diff formulation costs
-    # ~10× the HBM traffic once detection is batched over frames).
+    # All elementwise over (H, W) — XLA fuses the chain into a few loops
+    # with no (16, H, W) intermediates (the stacked-diff formulation moves
+    # ~10× the bytes once detection is batched over frames).
     mask_b = jnp.zeros(img.shape, jnp.int32)
     mask_d = jnp.zeros(img.shape, jnp.int32)
     excess_b = jnp.zeros(img.shape, jnp.float32)
@@ -100,9 +100,8 @@ def grid_topk(score: jnp.ndarray, grid_rows: int, grid_cols: int,
     """Grid-capped detection (matcherOpenCV.cpp:118-180): bounded detections
     per grid cell by response, then global top-``max_features``.
 
-    TPU formulation: ``lax.top_k`` over whole cells lowers to a full per-row
-    sort (measured 0.27 ms/frame at 640×480 — 4× the cost of the score map
-    itself). Instead each cell is subdivided into m×m subtiles and each
+    ``lax.top_k`` over whole cells lowers to a full per-row sort. Instead
+    each cell is subdivided into m×m subtiles and each
     subtile keeps ONE winner (an argmax — a cheap max-reduce), with m chosen
     so the per-cell candidate count matches the reference's per-cell cap.
     One winner per subtile is a slightly stronger spatial spread than
@@ -217,20 +216,12 @@ def subpixel_refine(score: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 
 def detect(gray: jnp.ndarray, threshold: float, nms_radius: int,
            grid_rows: int, grid_cols: int, max_features: int,
-           grid_policy: str = "subtile", use_pallas: bool = False):
+           grid_policy: str = "subtile"):
     """fast_score_map → nms → grid cap → subpixel refine, one call.
     ``grid_policy``: "subtile" (fast, one winner per subtile) or "exact"
-    (the reference's per-cell top-k, ~4× the cap cost). ``use_pallas``
-    routes score+NMS through the fused Pallas kernel (bit-exact; measured
-    at parity with the XLA fusion on v5e — subpixel refine then recomputes
-    the raw map, so the XLA path stays the default)."""
-    if use_pallas:
-        from putslam_tpu.ops import fast_pallas
-        raw = fast_score_map(gray, threshold)
-        s = fast_pallas.fast_score_nms(gray, threshold, nms_radius)
-    else:
-        raw = fast_score_map(gray, threshold)
-        s = nms(raw, nms_radius)
+    (the reference's per-cell top-k, ~4× the cap cost)."""
+    raw = fast_score_map(gray, threshold)
+    s = nms(raw, nms_radius)
     cap = grid_topk if grid_policy == "subtile" else grid_topk_exact
     uv, resp, valid = cap(s, grid_rows, grid_cols, max_features)
     uv = jnp.where(valid[:, None], subpixel_refine(raw, uv), uv)

@@ -1,6 +1,6 @@
 """Batched closed-form rigid alignment (weighted Kabsch/Horn), no LAPACK.
 
-TPU-native replacement for the reference's per-hypothesis Umeyama call
+Batched replacement for the reference's per-hypothesis Umeyama call
 (reference: src/TransformEst/kabschEst.cpp:24-68 — centroids, 3×3
 cross-covariance, Jacobi SVD with a sign fix; Eigen::umeyama at
 src/TransformEst/RANSAC.cpp:224-226).
@@ -31,10 +31,8 @@ def weighted_kabsch(p: jnp.ndarray, q: jnp.ndarray, w: jnp.ndarray,
 
     Layout note: the whole solve is written structure-of-arrays — the 4×4
     Horn matrix is carried as 10 scalar component arrays of shape (...,)
-    rather than a (..., 4, 4) tensor. Tiny trailing dims would be padded to
-    full (8, 128) vector tiles on TPU (~64× wasted VPU lanes + HBM); with
-    the hypothesis batch on the lane axis every squaring is 40 fully
-    vectorized FMAs (measured ~10× faster at H=1024 than the tensor form).
+    rather than a (..., 4, 4) tensor, so every squaring is 40 elementwise
+    FMAs over the hypothesis batch instead of batched 4×4 products.
     """
     wsum = jnp.maximum(jnp.sum(w, axis=-1, keepdims=True), 1e-9)
     wn = w / wsum
@@ -64,8 +62,7 @@ def kabsch_soa(px, py, pz, qx, qy, qz, iters: int = 30):
 
     Built for RANSAC's minimal-sample fits: with samples gathered as
     (used_pairs, H) component arrays, no tensor in the whole solve carries a
-    minor dim smaller than the hypothesis batch — the (H, 3, 3) form wastes
-    ~42× VPU lanes on tile padding. Returns (..., 7) poses."""
+    minor dim smaller than the hypothesis batch. Returns (..., 7) poses."""
     p_bar_x, p_bar_y, p_bar_z = px.mean(0), py.mean(0), pz.mean(0)
     q_bar_x, q_bar_y, q_bar_z = qx.mean(0), qy.mean(0), qz.mean(0)
     pcx, pcy, pcz = px - p_bar_x, py - p_bar_y, pz - p_bar_z

@@ -1,6 +1,6 @@
 """Batched pyramidal Lucas-Kanade optical flow (KLT).
 
-TPU-native replacement for the reference's tracking front-end
+Batched replacement for the reference's tracking front-end
 (reference: src/Matcher/matcherOpenCV.cpp:209-300 ``performTracking`` —
 cv::calcOpticalFlowPyrLK with winSize 7, 3 levels, error threshold + pruning;
 the Gauss-Newton patch alignment of src/Matcher/MatchingOnPatches.cpp:37-66

@@ -1,13 +1,13 @@
-"""Descriptor matching as MXU matmuls.
+"""Descriptor matching as matmuls.
 
-TPU-native replacement for the reference's BFMatcher cross-check matching
+Batched replacement for the reference's BFMatcher cross-check matching
 (reference: src/Matcher/matcherOpenCV.cpp:97-106 — Hamming norm for binary
 descriptors, cross-check; the O(|A|·|B|) Hamming loop in ``performMatching``
 :198-206).
 
 With descriptors stored as ±1 int8 vectors, Hamming distance is an int8
 matmul: dot(a, b) = (#agree − #disagree) = 256 − 2·hamming, so
-hamming = (256 − a·b) / 2. One (N, 256) × (256, M) product on the MXU scores
+hamming = (256 − a·b) / 2. One (N, 256) × (256, M) product scores
 every pair at once; cross-check is two argmins over the distance matrix.
 """
 
@@ -29,8 +29,7 @@ def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray,
     """
     bits = desc_a.shape[-1]
     # bf16 is exact for ±1 operands and f32 accumulation is exact up to the
-    # 256-long sums; bf16 keeps the MXU at full rate (int8 paths can lower
-    # to a slower emulation depending on generation)
+    # 256-long sums
     dots = jax.lax.dot_general(
         desc_a.astype(jnp.bfloat16), desc_b.astype(jnp.bfloat16),
         dimension_numbers=(((1,), (1,)), ((), ())),

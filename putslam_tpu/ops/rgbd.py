@@ -1,13 +1,13 @@
 """Dense RGB-D geometry utilities.
 
-TPU-native replacement for the reference's RGBD helper namespace
+Batched replacement for the reference's RGBD helper namespace
 (reference: src/RGBD/RGBD.cpp — 8-neighbour surface normals :101-144,
 Scharr-like RGB gradients :147-187, colour point clouds for octomap export
 :338-362, depth/distance feature filters :189-252; the 2D↔3D lifting lives
 in geometry/camera.py).
 
 Everything is whole-image: normals come from central differences of the
-unprojected point map (one cross product per pixel on the VPU), gradients
+unprojected point map (one cross product per pixel), gradients
 from two separable Scharr convolutions.
 """
 

@@ -1,10 +1,10 @@
 """Distributed bundle adjustment over a device mesh.
 
 The reference has no distributed story (single process, SURVEY §2); this is
-the TPU-native scaling path mandated by BASELINE.json: landmarks are
+the scaling path for maps beyond one device: landmarks are
 partitioned into contiguous blocks across the mesh, every device assembles
 the Hessian contribution of *its* landmark block, and the reduced camera
-system is formed by an ICI ``psum`` of per-block Schur products:
+system is formed by a ``psum`` of per-block Schur products:
 
     S = H_cc − Σ_d  H_cl^(d) · blkdiag(H_ll^(d)⁻¹) · H_cl^(d)ᵀ
 
@@ -195,8 +195,8 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh: Mesh,
             b_c_part = b_c_part.at[g.pp_j].add(
                 -jnp.einsum("e,eri,er->ei", wpp, Jj, r6))
 
-            # --- local Schur contribution + ICI reduction -----------------
-            # MXU coupling build (optimize.schur_subtrahend_mm) — rows for edges not
+            # --- local Schur contribution + cross-device reduction ---------
+            # matmul coupling build (optimize.schur_subtrahend_mm) — rows for edges not
             # owned by this shard vanish because w (hence C/F) is 0 there
             tr_ll = (H_ll[..., 0, 0] + H_ll[..., 1, 1] + H_ll[..., 2, 2]) / 3.0
             H_ll_inv = inv3x3(

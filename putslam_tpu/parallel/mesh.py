@@ -1,7 +1,7 @@
 """Device-mesh creation and sharded multi-session VO.
 
 The reference has no distributed execution at all (4 POSIX threads + mutexes,
-SURVEY §2 "Parallelism"); this module introduces the TPU-native parallelism
+SURVEY §2 "Parallelism"); this module introduces the parallelism
 axes mandated by BASELINE.json: data parallelism over concurrent SLAM
 sessions/frames here, and model/graph sharding for distributed BA in
 ``parallel/dist_ba.py``.

@@ -62,12 +62,16 @@ def main(argv=None) -> int:
                     help="write trajectory/map/stats PNGs (offline visualizer)")
     args = ap.parse_args(argv)
 
+    import jax
+
     from putslam_tpu.config import tum_fr1_config
     from putslam_tpu.eval import ate as ate_mod, rpe as rpe_mod
     from putslam_tpu.io import synthetic, tum
     from putslam_tpu.models import slam, vo
     from putslam_tpu.utils import timing
+    from putslam_tpu.utils.device import enable_compile_cache
 
+    enable_compile_cache()
     os.makedirs(args.out, exist_ok=True)
     if args.reference_resources:
         from putslam_tpu.io import xml_config
@@ -147,12 +151,13 @@ def main(argv=None) -> int:
             est_vo_anchored, est, outs, state, _archive = \
                 slam.run_slam_global(cfg, grays, depths,
                                      init_pose=init_pose, seed=args.seed,
-                                     chunk_size=args.chunk or 64)
+                                     chunk_size=args.chunk or 64,
+                                     timer=timer)
     else:
         with timer.stage("slam_total"):
             est_vo_anchored, est, outs, state = slam.run_slam_final(
                 cfg, grays, depths, init_pose=init_pose, seed=args.seed,
-                chunk_size=args.chunk)
+                chunk_size=args.chunk, timer=timer)
     total = time.perf_counter() - t0
 
     # --- outputs (reference file names) ----------------------------------
@@ -179,7 +184,16 @@ def main(argv=None) -> int:
             viz.plot_map(os.path.join(args.out, "map.png"), state.map, est)
             viz.plot_run_stats(os.path.join(args.out, "stats.png"), outs)
 
-    report = {"frames": int(len(grays)), "fps": round(len(grays) / total, 2)}
+    dev = jax.devices()[0]
+    report = {"frames": int(len(grays)), "fps": round(len(grays) / total, 2),
+              "platform": dev.platform, "device_kind": dev.device_kind}
+    chunks = timer.samples.get("slam_chunk", [])
+    if chunks:
+        # the first chunk includes compiling the scan; the rest are steady
+        report["first_chunk_s"] = chunks[0]
+    if len(chunks) > 1:
+        report["steady_fps"] = (args.chunk or 64) * (len(chunks) - 1) \
+            / sum(chunks[1:])
     if gt_poses is not None:
         report["ate_rmse_m"] = round(
             ate_mod.ate_rmse_aligned_frames(gt_poses, est), 5)

@@ -1,6 +1,6 @@
 """Fixed-capacity global feature map with keyframes and covisibility.
 
-TPU-native replacement for the reference's ``FeaturesMap``
+Batched replacement for the reference's ``FeaturesMap``
 (reference: src/Map/featuresMap.cpp — feature store ``map<int,MapFeature>``
 with ids from 100000 featuresMap.h:23; camera trajectory + keyframe decision
 by covisibility :292-333; covisibility ``WeightedGraph``
@@ -97,7 +97,7 @@ def _guided_distances(cfg: SlamConfig, m: MapState, pose_guess: jnp.ndarray,
                       feat: Features, radius_scale: float) -> jnp.ndarray:
     """The (L, N) gated descriptor-distance matrix shared by the
     best-per-landmark and multi-mate guided matchers: 3D sphere gate +
-    octave ±window gate + multi-view-slot Hamming via one MXU matmul
+    octave ±window gate + multi-view-slot Hamming via one matmul
     (matcher.cpp:606-798 semantics). inf where gated out."""
     mc = cfg.matcher
     L, D, _ = m.lm_desc.shape
@@ -186,7 +186,7 @@ def guided_match(cfg: SlamConfig, m: MapState, pose_guess: jnp.ndarray,
     the best candidate per landmark (the extra ratio-mates add little once
     RANSAC re-filters; the acceptance gate below mirrors the ratio test).
 
-    All L×N pair distances come from one MXU matmul over the multi-view
+    All L×N pair distances come from one matmul over the multi-view
     descriptor slots (min over slots ≈ the nearest-view descriptor selection
     of findNearestFrame, featuresMap.cpp:528-563).
     """

@@ -8,8 +8,8 @@ dumped PUTSLAM.cpp:984-985), end-to-end fps → ``fps.res``
 ``VO_trajectory.res`` / ``graph_trajectory.res`` (PUTSLAM.cpp:17-18).
 
 The stage taxonomy keeps the reference's names so timing comparisons are
-apples-to-apples; on TPU whole-frame stages are measured around blocking
-device calls (per-op device times come from ``jax.profiler``).
+apples-to-apples; whole-frame stages are measured around blocking device
+calls (per-op device times come from ``jax.profiler``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Offline visualization: trajectory and map renders to image files.
 
-Replaces the reference's live Qt/OpenGL viewer for headless TPU runs
+Replaces the reference's live Qt/OpenGL viewer for headless runs
 (reference: src/Visualizer/Qvisualizer.h:196-290 — trajectory, features as
-uncertainty ellipsoids, point clouds via the Observer pattern). A TPU pod
-has no display; the same content is rendered offline with matplotlib from
+uncertainty ellipsoids, point clouds via the Observer pattern). An
+accelerator host has no display; the same content is rendered offline with matplotlib from
 the run outputs (poses, landmark arrays, per-step statistics).
 """
 

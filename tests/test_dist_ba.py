@@ -29,8 +29,8 @@ def test_dist_ba_matches_single_device(rng):
         bcfg, m, jnp.asarray(kf_init), jnp.ones((K,), bool),
         jnp.asarray(lm_init), jnp.ones((L,), bool), g, fixed, lm_gen)
 
-    # dist_ba builds its Schur coupling through the bf16 MXU path
-    # (optimize.coupling_mm) while the single-device scatter reference is
+    # dist_ba builds its Schur coupling through the bf16 matmul path
+    # (optimize.schur_subtrahend_mm) while the single-device scatter reference is
     # all-f32: curvature differs by ~0.2 % (direction only — the gradient
     # is f32-exact in both), so the chi² descent path drifts slightly
     np.testing.assert_allclose(np.asarray(res.chi2), np.asarray(chi2_d),

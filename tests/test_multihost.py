@@ -2,7 +2,7 @@
 
 Two OS processes (jax.distributed + Gloo) × 4 virtual CPU devices form an
 8-device global mesh; ``dist_ba.dist_gauss_newton`` must reproduce the
-single-process result across the process (DCN-analog) boundary.
+single-process result across the process boundary.
 (SURVEY §5 "Distributed communication backend"; BASELINE 2-host target.)
 """
 

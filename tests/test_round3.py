@@ -242,7 +242,7 @@ def test_reprojection_weights_are_pixel_based(rng):
 
 
 def test_solvers_agree(rng):
-    """The MXU-formulated dense Schur (one-hot matmuls, bf16 curvature) must
+    """The matmul-formulated dense Schur (one-hot matmuls, bf16 curvature) must
     reproduce the scatter-based f32 path and the matrix-free PCG path on the
     same problem — same chi² trajectory, same solution."""
     (kf0, kf_gt, kf_valid, lm0, lm_gt, lm_valid, g, fixed) = \

@@ -293,14 +293,20 @@ def test_se2_pose_graph_converges():
         atol=1e-5)
 
 
-def test_pallas_fast_kernel_matches_xla():
-    """The fused Pallas FAST+NMS kernel must be bit-exact with the XLA
-    chain (runs interpreted on CPU; compiled + measured on the chip —
-    landed at parity, see ops/fast_pallas.py docstring)."""
-    from putslam_tpu.ops import fast, fast_pallas
 
-    rng = np.random.default_rng(9)
-    g = jnp.asarray(rng.uniform(0, 1, (64, 96)).astype(np.float32))
-    ref = fast.nms(fast.fast_score_map(g, 20.0), 3)
-    got = fast_pallas.fast_score_nms(g, 20.0, 3)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
+@pytest.mark.parametrize("loop_closure", [False, True])
+def test_scan_state_types_stable_across_chunks(loop_closure):
+    """The state slam_sequence returns has the types it was given (dtype,
+    shape and weak type of every leaf), so the next streamed chunk reuses
+    the compiled scan instead of compiling it again."""
+    cfg = tiny_test_config()
+    cfg = cfg.replace(loop_closure=dataclasses.replace(
+        cfg.loop_closure, enabled=loop_closure))
+    poses = synthetic.orbit_trajectory(3, radius=0.05, yaw_amp=0.05)
+    grays, depths = synthetic.render_sequence(cfg.camera, poses)
+    st = slam_mod.slam_init(cfg, grays[0], depths[0], poses[0])
+    st2, _ = slam_mod.slam_sequence(cfg, st, grays[1:], depths[1:])
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(st)[0],
+                            jax.tree.leaves(st2)):
+        assert (jax.typeof(a), a.weak_type) == (jax.typeof(b), b.weak_type), \
+            jax.tree_util.keystr(path)

@@ -8,7 +8,7 @@ reference's scripts/prepareDatasetFreiburg.py performs):
     initialPosition                  ("x y z qx qy qz qw" from groundtruth)
 
 This is how the mounted reference binary (built under /tmp/refbuild) gets
-fed the SAME on-disk sequences the TPU engine runs, for a measured
+fed the SAME on-disk sequences this engine runs, for a measured
 apples-to-apples baseline (BASELINE.md first milestone).
 """
 

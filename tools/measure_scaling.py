@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Measured dist-BA scaling on the virtual CPU mesh at fr1 capacities.
 
-VERDICT r4 weak #5: docs/SCALING.md derived 2-host efficiency from
-single-chip timings + DCN arithmetic only. This tool MEASURES the sharded
+docs/SCALING.md once derived 2-host efficiency from single-device timings
+and network arithmetic only. This tool MEASURES the sharded
 solver per-GN-iteration at fr1 capacities (K=256, L=8192, M=8192) on
 1/2/4/8 virtual CPU devices (XLA:CPU executes the same shard_map program
 with real collectives over shared memory — the scaling SHAPE, i.e. how the
 per-device assembly work and the psum payload divide, is the measurement;
-absolute times are CPU times, not TPU times, and are labeled as such).
+absolute times are CPU times, not device times, and are labeled as such).
 
 Usage:  python tools/measure_scaling.py [--json-out results/scaling.json]
 (self-re-executes with XLA_FLAGS to get the 8-device host platform)
@@ -88,7 +88,7 @@ def run_measurement(json_out):
         r["efficiency_pct"] = round(100 * r["speedup"] / r["ndev"], 1)
     out = {"platform": "cpu-virtual-mesh", "capacities": CAPS, "rows": rows,
            "note": "scaling SHAPE on XLA:CPU shard_map with real "
-                   "collectives; absolute ms are CPU, not TPU"}
+                   "collectives; absolute ms are CPU, not device times"}
     print(json.dumps(out))
     if json_out:
         with open(json_out, "w") as f:

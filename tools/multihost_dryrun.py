@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""2-process DCN dryrun: distributed BA over a mesh spanning OS processes.
+"""2-process dryrun: distributed BA over a mesh spanning OS processes.
 
 Each process hosts N virtual CPU devices; together they form a 2N-device
 global mesh. Both processes build the identical synthetic BA problem
 (seeded) and run ``parallel.dist_ba.dist_gauss_newton`` over the global
 mesh — the Schur psum crosses the process boundary exactly as it would
-cross DCN between TPU hosts. Prints one JSON line with the final chi² so
+cross the network between hosts. Prints one JSON line with the final chi² so
 the caller can compare against the single-process result.
 
 Usage (each process):
