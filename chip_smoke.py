@@ -16,10 +16,13 @@
 4. Numerics on the card against the same computation on the CPU device of
    this process, or against an exact reference: detection + description,
    the Hamming products, the production BA solver against the scatter
-   solver, and whether an f32 dot at DEFAULT precision runs in TF32 here.
-   Also times the FAST score map + non-max suppression.
-5. ``--four-cards``: distributed finalize, distributed BA at L=8192 and
-   session-sharded VO on a 4-card mesh, each against its one-card run.
+   solver (on the engine's own graph after the sequence, and on a graph
+   filling the config's capacities with the engine graph's views per
+   landmark), and whether an f32 dot at DEFAULT precision runs in TF32
+   here. Also times the FAST score map + non-max suppression.
+5. ``--four-cards``: distributed finalize from the engine's state after the
+   sequence, distributed BA at the config's capacities and session-sharded
+   VO on a 4-card mesh, each against its one-card run.
 
 One process owns the card(s). Every check raises on failure, so the script
 exits non-zero and prints no result line; the last line of a passing run is
@@ -43,33 +46,33 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
-FRAMES = 193        # 1 + three 64-frame chunks: no padded tail chunk
+FRAMES = 200        # 1 + three 64-frame chunks + a 7-frame padded tail
 SEED = 3            # tools/make_disk_dataset.py's default sequence seed
 CHUNK = 64
 
 # ATE bounds (metres) on the sequence above, one per run. Origin: a CPU
 # rehearsal of the identical sequence, seed and command (JAX_PLATFORMS=cpu,
-# same phase functions, 16-core x86 host): ATE 0.00957 m (main path),
-# 0.07381 m (VO only), 0.01095 m (loop closure + global BA). Margin: 2x the
-# CPU ATE plus 5 mm. The GPU run does not reproduce the CPU trajectory bit
-# for bit (reduction order, bf16/TF32 products), so the bound is on ATE,
-# not on poses.
-ATE_BOUND_M = {"slam": 0.02414, "vo": 0.15262, "lc": 0.0269}
+# same phase functions, on the 16-core host of an H100 machine): ATE
+# 0.0111 m (main path), 0.10031 m (VO only), 0.00839 m (loop closure +
+# global BA). Margin: 2x the CPU ATE plus 5 mm. The GPU run does not
+# reproduce the CPU trajectory bit for bit (reduction order, bf16/TF32
+# products), so the bound is on ATE, not on poses.
+ATE_BOUND_M = {"slam": 0.0272, "vo": 0.20562, "lc": 0.02178}
 
 DESC_BITS_ALLOWED = 5e-3   # descriptor bits that may differ GPU vs CPU
-# dense_schur_mm vs the dense_schur oracle: chi² within 2 % as in
-# tests/test_round3.py::test_solvers_agree; poses within 2e-3 instead of that
-# test's 2e-4, because at K=256 the production solver stops at the chi²-ratio
-# test (0.999) while the oracle runs every iteration, and along the weakly
-# determined directions of a 256-keyframe chain the poses are still ~1e-3
-# apart at equal chi² (8e-4 on the CPU with the same graph).
-BA_POSE_ATOL = 2e-3
+# dense_schur_mm vs the dense_schur oracle, both running the same number of
+# iterations: poses within 2e-4 and chi² within 2 %, as in
+# tests/test_round3.py::test_solvers_agree.
+BA_POSE_ATOL = 2e-4
 BA_CHI2_RTOL = 0.02
-DIST_POSE_ATOL = 5e-3      # bf16 Schur curvature: direction-only drift
+# split-bf16 Schur curvature against the f32 scatter solve, and a sharded
+# reduction order: direction-only drift
+DIST_POSE_ATOL = 5e-3
 # vmapped vs one-by-one VO is the same computation, but XLA may choose other
 # kernels for the batched form and a RANSAC tie may then pick another
 # hypothesis; 5 mm is well under the ~3 cm VO error on these sequences.
 VO_POSE_ATOL = 5e-3
+GRAPH_NOISE_M = 0.005      # observation noise of the synthetic BA graph
 
 
 def log(*a):
@@ -295,27 +298,20 @@ def check_hamming(cfg, feat, dev, seed: int = 0):
         f"{int(fin.sum())} guided pairs) against XOR + popcount")
 
 
-def make_graph(K: int, L: int, M: int, E: int, seed: int = 0,
-               noise: float = 0.005, views: int = 16):
-    """A seeded BA problem filling a (K, L, M, E)-capacity graph:
-    keyframes on a path, each observing a sliding window of landmarks (each
-    landmark seen by about ``views`` keyframes) in its camera frame,
-    odometry edges between consecutive keyframes. Returns (kf_true,
-    kf_init, lm_true, lm_init, lm_valid, graph) as numpy / GraphState.
-
-    With 4 views per landmark at K=256 the bf16 Schur curvature of
-    dense_schur_mm cancels in the chain's weak directions and its step
-    diverges where the f32 oracle converges (see PERF.md); 16 views, as in
-    a keyframe-dense map, keep both solvers convergent."""
+def make_graph(K: int, L: int, M: int, E: int, n_lm: int,
+               views: np.ndarray):
+    """A seeded BA problem in a (K, L, M, E)-capacity graph: K keyframes on
+    a path, odometry edges between consecutive ones, and up to ``n_lm``
+    landmarks, each seen by a run of consecutive keyframes whose length is
+    drawn from ``views`` (observations per landmark, as an engine graph has
+    them), so that the observations fit in M. Returns (kf_true, kf_init,
+    lm_true, lm_init, lm_valid, graph) as numpy / GraphState."""
     import jax.numpy as jnp
 
     from putslam_tpu.backend.graph import GraphState
     from putslam_tpu.geometry import se3
 
-    rng = np.random.default_rng(seed)
-    per = M // K                              # observations per keyframe
-    n_lm = min(L // 2, M // views)            # landmarks in use
-    step = max(n_lm // K, 1)
+    rng = np.random.default_rng(0)
     t = np.stack([np.linspace(0.0, 3.0, K),
                   0.2 * np.sin(np.linspace(0.0, 6.0, K)),
                   np.linspace(0.0, 1.0, K)], -1)
@@ -323,11 +319,15 @@ def make_graph(K: int, L: int, M: int, E: int, seed: int = 0,
     q = np.asarray(se3.so3_exp_quat(jnp.asarray(rv, jnp.float32)))
     kf_true = np.concatenate([t, q], -1).astype(np.float32)
 
-    kf_of_lm = np.minimum(np.arange(n_lm) // step, K - 1)
+    v = np.clip(rng.choice(np.asarray(views), min(n_lm, L)), 1, K)
+    v = v[:np.searchsorted(np.cumsum(v), M, side="right")]
+    n_lm = len(v)
+    home = np.clip(np.round((np.arange(n_lm) + 0.5) * K / n_lm - v / 2),
+                   0, K - v).astype(np.int64)       # first keyframe of each
     lm_local = np.stack([rng.uniform(-1.5, 1.5, n_lm),
                          rng.uniform(-1.0, 1.0, n_lm),
                          rng.uniform(2.0, 4.0, n_lm)], -1)
-    lm_used = np.asarray(se3.apply(jnp.asarray(kf_true[kf_of_lm]),
+    lm_used = np.asarray(se3.apply(jnp.asarray(kf_true[home + v // 2]),
                                    jnp.asarray(lm_local, jnp.float32)))
     slots = rng.choice(L, n_lm, replace=False)
     lm_true = np.zeros((L, 3), np.float32)
@@ -335,13 +335,13 @@ def make_graph(K: int, L: int, M: int, E: int, seed: int = 0,
     lm_valid = np.zeros((L,), bool)
     lm_valid[slots] = True
 
-    obs_kf = np.repeat(np.arange(K), per)
-    first = (np.arange(K) * step - per // 2)[:, None] + np.arange(per)
-    obs_lm = slots[np.mod(first, n_lm)].reshape(-1)
-    m = K * per
+    first = np.repeat(home - np.cumsum(v) + v, v)     # per-observation
+    obs_kf = first + np.arange(v.sum())
+    obs_lm = np.repeat(slots, v)
+    m = len(obs_kf)
     z = np.asarray(se3.apply(se3.inverse(jnp.asarray(kf_true[obs_kf])),
                              jnp.asarray(lm_true[obs_lm])))
-    z = z + rng.normal(0.0, noise, z.shape).astype(np.float32)
+    z = z + rng.normal(0.0, GRAPH_NOISE_M, z.shape).astype(np.float32)
 
     def pad(x, fill=0):
         out = np.full((M,) + x.shape[1:], fill, x.dtype)
@@ -365,7 +365,8 @@ def make_graph(K: int, L: int, M: int, E: int, seed: int = 0,
         obs_kf=jnp.asarray(pad(obs_kf.astype(np.int32))),
         obs_lm=jnp.asarray(pad(obs_lm.astype(np.int32))),
         obs_xyz=jnp.asarray(pad(z.astype(np.float32))),
-        obs_w=jnp.asarray(pad(np.full((m,), 1.0 / noise ** 2, np.float32))),
+        obs_w=jnp.asarray(pad(np.full((m,), GRAPH_NOISE_M ** -2,
+                                      np.float32))),
         obs_gen=jnp.zeros((M,), jnp.int32),
         obs_kfgen=jnp.zeros((M,), jnp.int32),
         obs_seq=jnp.asarray(pad(np.arange(m, dtype=np.int32))),
@@ -391,49 +392,130 @@ def make_graph(K: int, L: int, M: int, E: int, seed: int = 0,
     return kf_true, kf_init, lm_true, lm_init, lm_valid, g
 
 
-def check_ba(cfg, dev, seed: int = 0):
+def engine_state(cfg, dataset: str):
+    """The engine's state at the end of ``dataset``, before the final
+    optimization: the decode and the chunked scan of ``run.main`` (whose
+    scan this process has compiled already). Returns (cfg with the
+    dataset's camera, state)."""
+    from putslam_tpu import run
+    from putslam_tpu.models import slam
+
+    cfg, _, grays, depths, _, gt = run.load_dataset(cfg, dataset)
+    _, _, st = slam.run_slam(cfg, grays, depths, init_pose=gt[0],
+                             chunk_size=CHUNK)
+    return cfg, st
+
+
+def finalize_inputs(cfg, st):
+    """What ``slam.finalize`` hands its first solve: every keyframe free but
+    the oldest, the landmarks with ``final_min_obs`` observations. Returns
+    (positional args of optimize_graph, its lm_gen/kf_gen/cam keywords)."""
+    import jax.numpy as jnp
+
+    m = st.map
+    lm_valid = m.lm_valid & (m.lm_n_obs >= cfg.backend.final_min_obs)
+    seqs = jnp.where(m.kf_valid, m.kf_seq, jnp.iinfo(jnp.int32).max)
+    fixed = jnp.zeros_like(m.kf_valid).at[jnp.argmin(seqs)].set(True)
+    return ((m.kf_pose, m.kf_valid, m.lm_pos, lm_valid, st.graph, fixed),
+            dict(lm_gen=m.lm_gen, kf_gen=m.kf_gen, cam=cfg.camera))
+
+
+def view_counts(args, kw) -> np.ndarray:
+    """Observations per landmark in a graph, over the landmarks with any:
+    the edges a solve of ``args``/``kw`` keeps (valid, to a valid landmark
+    and keyframe of the generation the edge was made with). Raises when
+    there are none: an engine that kept no map has nothing to compare."""
+    kf_valid, lm_valid, g = (np.asarray(args[1]), np.asarray(args[3]),
+                             args[4])
+    lm, kf = np.asarray(g.obs_lm), np.asarray(g.obs_kf)
+    ok = (np.asarray(g.obs_valid) & lm_valid[lm] & kf_valid[kf]
+          & (np.asarray(g.obs_gen) == np.asarray(kw["lm_gen"])[lm])
+          & (np.asarray(g.obs_kfgen) == np.asarray(kw["kf_gen"])[kf]))
+    if not ok.any():
+        raise RuntimeError("the engine's graph holds no usable observation")
+    counts = np.bincount(lm[ok], minlength=len(lm_valid))
+    return counts[counts > 0]
+
+
+def compare_solvers(name, bcfg, args, kw, dev):
     """One ``optimize_graph`` call with the production ``dense_schur_mm``
     solver (default precision) against the scatter ``dense_schur`` oracle
-    run at HIGHEST matmul precision, both on ``dev``, on a graph filling
-    the config's capacities, with the end-of-run finalize's settings.
+    at HIGHEST matmul precision, both on ``dev``; raises unless the poses
+    and the final chi² agree. Returns (max |dpose|, relative chi² gap).
 
-    The robust kernel is off, as in tests/test_round3.py::test_solvers_agree:
-    under Cauchy reweighting chi² is not monotone, and dense_schur_mm stops
-    at the chi²-ratio test while dense_schur runs every iteration, so the
-    two would stop at different points for a reason that is not numeric."""
+    dense_schur_mm's chi²-ratio stop is off here, so that both run every
+    iteration: along the weak directions of a long keyframe chain the
+    oracle's poses still drift by millimetres per iteration at a chi² that
+    changes in the sixth digit, so two solvers that stop at different
+    iterations differ there for a reason that is not numeric."""
     import jax
-    import jax.numpy as jnp
 
     from putslam_tpu.backend import optimize as opt
 
-    K, L = cfg.map.max_keyframes, cfg.map.max_landmarks
-    M, E = cfg.backend.max_observations, cfg.backend.max_pose_pose_edges
-    _, kf_init, _, lm_init, lm_valid, g = make_graph(K, L, M, E, seed)
-    args = jax.device_put(
-        (jnp.asarray(kf_init), jnp.ones((K,), bool), jnp.asarray(lm_init),
-         jnp.asarray(lm_valid), g, jnp.zeros((K,), bool).at[0].set(True)),
-        dev)
-    base = dataclasses.replace(
-        cfg.backend, gn_iterations=cfg.backend.final_gn_iterations,
-        ba_window=0, robust_kernel="none")
-    mm = opt.optimize_graph(dataclasses.replace(base,
+    bcfg = dataclasses.replace(bcfg, chi2_ratio_termination=math.inf)
+    args = jax.device_put(args, dev)
+    mm = opt.optimize_graph(dataclasses.replace(bcfg,
                                                 solver="dense_schur_mm"),
-                            *args)
+                            *args, **kw)
     with jax.default_matmul_precision("highest"):
-        ref = opt.optimize_graph(dataclasses.replace(base,
+        ref = opt.optimize_graph(dataclasses.replace(bcfg,
                                                      solver="dense_schur"),
-                                 *args)
+                                 *args, **kw)
     dpose = float(np.abs(np.asarray(mm.kf_pose)
                          - np.asarray(ref.kf_pose)).max())
     c_mm, c_ref = float(mm.chi2[-1]), float(ref.chi2[-1])
     rel = abs(c_mm - c_ref) / max(c_ref, 1e-6)
-    log(f"numerics: BA K={K} L={L} M={M}: dense_schur_mm vs dense_schur "
-        f"(HIGHEST): max |dpose| {dpose} (atol {BA_POSE_ATOL}); chi2 "
-        f"{c_mm} vs {c_ref}, rel {rel} (rtol {BA_CHI2_RTOL}); chi2 start "
+    log(f"numerics: BA {name}: dense_schur_mm vs dense_schur (HIGHEST): "
+        f"max |dpose| {dpose} (atol {BA_POSE_ATOL}); chi2 {c_mm} vs "
+        f"{c_ref}, rel {rel} (rtol {BA_CHI2_RTOL}); chi2 start "
         f"{float(ref.chi2[0])}")
     if not (dpose <= BA_POSE_ATOL and rel <= BA_CHI2_RTOL):
-        raise RuntimeError("dense_schur_mm disagrees with dense_schur")
+        raise RuntimeError(f"BA {name}: dense_schur_mm disagrees with "
+                           f"dense_schur")
     return dpose, rel
+
+
+def check_ba(cfg, st, dev):
+    """The production BA solver against the scatter oracle, with the
+    end-of-run finalize's settings, on two graphs:
+
+    - the engine's own graph after the sequence, with finalize's inputs
+      (capped to the first ``ba_lm_block`` landmarks, the ones
+      dense_schur_mm keeps, so that both solve the same problem);
+    - a graph filling the config's capacities: K keyframes, M observations,
+      as many landmarks as fit in ``ba_lm_block`` and M, each with a number
+      of views drawn from the engine graph's.
+
+    The robust kernel is off, as in tests/test_round3.py::test_solvers_agree:
+    Cauchy reweighting moves the problem with the estimate, so two paths
+    that differ in the last bits can reweight apart."""
+    import jax.numpy as jnp
+
+    K, L = cfg.map.max_keyframes, cfg.map.max_landmarks
+    M, E = cfg.backend.max_observations, cfg.backend.max_pose_pose_edges
+    LC = cfg.backend.ba_lm_block or L
+    bcfg = dataclasses.replace(
+        cfg.backend, gn_iterations=cfg.backend.final_gn_iterations,
+        ba_window=0, robust_kernel="none")
+
+    args, kw = finalize_inputs(cfg, st)
+    keep = np.flatnonzero(np.asarray(args[3]))[:LC]
+    args = args[:3] + (jnp.zeros((L,), bool).at[keep].set(True),) + args[4:]
+    views = view_counts(args, kw)
+    log(f"numerics: engine graph: {int(np.asarray(args[1]).sum())} "
+        f"keyframes, {int(views.sum())} observations of {len(views)} "
+        f"landmarks; views per landmark: mean {views.mean()}, "
+        f"median {np.median(views)}, max {views.max()}, histogram "
+        f"{np.bincount(views).tolist()}")
+    compare_solvers(f"engine graph (K={K} L={L} M={M})", bcfg, args, kw, dev)
+
+    _, kf_init, _, lm_init, lm_valid, g = make_graph(K, L, M, E, LC, views)
+    compare_solvers(
+        f"K={K} L={L} M={M}, {int(lm_valid.sum())} landmarks, "
+        f"{int(g.n_obs)} observations, views from the engine graph", bcfg,
+        (jnp.asarray(kf_init), jnp.ones((K,), bool), jnp.asarray(lm_init),
+         jnp.asarray(lm_valid), g, jnp.zeros((K,), bool).at[0].set(True)),
+        {}, dev)
 
 
 def check_onehot_precision(cfg, dev, seed: int = 0):
@@ -489,10 +571,12 @@ def time_fast(cfg, dev, reps: int = 200) -> float:
     return ms
 
 
-def phase_numerics(cfg, gray, depth, dev, ref_dev):
+def phase_numerics(cfg, gray, depth, st, dev, ref_dev):
+    """Phase 4 on one frame ``gray``/``depth`` and the engine state ``st``
+    after the sequence."""
     feat = check_detection(cfg, gray, depth, dev, ref_dev)
     check_hamming(cfg, feat, dev)
-    check_ba(cfg, dev)
+    check_ba(cfg, st, dev)
     check_onehot_precision(cfg, dev)
     time_fast(cfg, dev)
 
@@ -510,11 +594,26 @@ def _on_all(x, devs, what: str):
                            f"want one on each of {len(devs)} devices")
 
 
-def phase_four_cards(cfg, devs, frames: int = CHUNK + 1, vo_frames: int = 16,
-                     sessions: int = 4):
-    """finalize_dist vs finalize, dist_gauss_newton vs the single-device
-    scatter solve at the config's capacities, vo_sessions_sharded vs one
-    vo_sequence per session; each on a 1-D mesh over ``devs``."""
+def _edges_on_all(g, n: int, what: str):
+    """Raise unless each of the ``n`` devices owns observation edges of
+    ``g`` under dist_ba's partition, and none overflows its slice."""
+    from putslam_tpu.parallel import dist_ba
+
+    counts = dist_ba.owner_counts(g, n)
+    ovf = dist_ba.partition_overflow(g, n)
+    log(f"four cards: {what}: edges per device {counts.tolist()}, "
+        f"overflow {ovf}")
+    if counts.min() == 0 or ovf:
+        raise RuntimeError(f"{what}: edges per device {counts.tolist()}, "
+                           f"overflow {ovf}")
+
+
+def phase_four_cards(cfg, devs, work: str, frames: int = FRAMES,
+                     vo_frames: int = 16, sessions: int = 4):
+    """finalize_dist vs finalize from the engine's state after phase 2's
+    sequence, dist_gauss_newton vs the single-device scatter solve at the
+    config's capacities, vo_sessions_sharded vs one vo_sequence per
+    session; each on a 1-D mesh over ``devs``."""
     import jax
     import jax.numpy as jnp
 
@@ -524,23 +623,14 @@ def phase_four_cards(cfg, devs, frames: int = CHUNK + 1, vo_frames: int = 16,
     from putslam_tpu.parallel import dist_ba, mesh as mesh_mod
 
     n = len(devs)
-    # --- finalize_dist from the engine's own state after the first chunk
-    # of phase 2's sequence; the renderer is a pinhole camera, so the engine
-    # runs without distortion, as camera.json tells run.main in phase 2 ----
-    cam = dataclasses.replace(cfg.camera, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
-                              k3=0.0)
-    cfg = cfg.replace(camera=cam)
-    poses = synthetic.handheld_trajectory(frames, seed=SEED)
-    grays, depths = synthetic.render_sequence(cam, poses)
-    st = slam.slam_init(cfg, grays[0], depths[0], poses[0])
-    st, _ = slam.slam_sequence(cfg, st, grays[1:], depths[1:])
+    # --- finalize_dist from the engine's own state -------------------------
+    dataset = materialize(os.path.join(work, "seq"), frames)
+    cfg, st = engine_state(cfg, dataset)
+    cam = cfg.camera
     lm_mesh = mesh_mod.make_mesh(n, axis="lm")
-    ovf = dist_ba.partition_overflow(st.graph, n, cfg.map.max_landmarks)
-    if ovf:
-        raise RuntimeError(f"finalize_dist would fall back: overflow {ovf}")
+    _edges_on_all(st.graph, n, "engine graph")
     single = slam.finalize(cfg, st)
     dist = slam.finalize_dist(cfg, st, lm_mesh)
-    _on_all(dist.map.lm_pos, devs, "finalize_dist landmarks")
     kv = np.asarray(st.map.kf_valid)
     if kv.sum() < 4:
         raise RuntimeError(f"only {int(kv.sum())} keyframes: nothing to "
@@ -555,26 +645,32 @@ def phase_four_cards(cfg, devs, frames: int = CHUNK + 1, vo_frames: int = 16,
     if d_fin > DIST_POSE_ATOL:
         raise RuntimeError("finalize_dist disagrees with finalize")
 
-    # --- dist_gauss_newton at the config's capacities ---------------------
+    # --- dist_gauss_newton at the config's capacities, views per landmark
+    # from the engine's graph (as in phase 4) -------------------------------
     K, L = cfg.map.max_keyframes, cfg.map.max_landmarks
     M, E = cfg.backend.max_observations, cfg.backend.max_pose_pose_edges
-    _, kf_init, _, lm_init, lm_valid, g = make_graph(K, L, M, E)
-    bcfg = dataclasses.replace(cfg.backend, gn_iterations=4)
-    fixed = jnp.zeros((K,), bool).at[0].set(True)
-    lm_gen = jnp.zeros((L,), jnp.int32)
+    views = view_counts(*finalize_inputs(cfg, st))
+    _, kf_init, _, lm_init, lm_valid, g = make_graph(
+        K, L, M, E, cfg.backend.ba_lm_block or L, views)
+    _edges_on_all(g, n, "capacity graph")
+    # finalize_dist's settings, so its compiled solve is reused
+    bcfg = dataclasses.replace(cfg.backend,
+                               gn_iterations=cfg.backend.final_gn_iterations,
+                               ba_window=0)
+    args = (jnp.asarray(kf_init), jnp.ones((K,), bool), jnp.asarray(lm_init),
+            jnp.asarray(lm_valid), g, jnp.zeros((K,), bool).at[0].set(True),
+            jnp.zeros((L,), jnp.int32), jnp.zeros((K,), jnp.int32))
     with jax.default_matmul_precision("highest"):
-        ref = opt.gauss_newton(bcfg, jnp.asarray(kf_init), jnp.ones((K,), bool),
-                               jnp.asarray(lm_init), jnp.asarray(lm_valid), g,
-                               fixed, lm_gen)
-    kf_d, lm_d, chi2_d, ovf = dist_ba.dist_gauss_newton(
-        bcfg, lm_mesh, jnp.asarray(kf_init), jnp.ones((K,), bool),
-        jnp.asarray(lm_init), jnp.asarray(lm_valid), g, fixed, lm_gen)
-    _on_all(lm_d, devs, "dist_gauss_newton landmarks")
+        ref = opt.gauss_newton(bcfg, *args, cam=cam)
+    kf_d, lm_d, chi2_d, ovf = dist_ba.dist_gauss_newton(bcfg, lm_mesh, *args,
+                                                        cam=cam)
     d_kf = float(np.abs(np.asarray(kf_d) - np.asarray(ref.kf_pose)).max())
     d_lm = float(np.abs(np.asarray(lm_d) - np.asarray(ref.lm_pos))[
         lm_valid].max())
     c_d, c_r = float(chi2_d[-1]), float(ref.chi2[-1])
-    log(f"four cards: dist_gauss_newton K={K} L={L} M={M} vs gauss_newton: "
+    log(f"four cards: dist_gauss_newton K={K} L={L} M={M} "
+        f"({int(lm_valid.sum())} landmarks, {int(g.n_obs)} observations, "
+        f"views from the engine graph) vs gauss_newton: "
         f"overflow {int(ovf)}, max |dpose| {d_kf}, max |dlm| {d_lm}, chi2 "
         f"{c_d} vs {c_r} (atol {DIST_POSE_ATOL}, rtol {BA_CHI2_RTOL})")
     if (int(ovf) or d_kf > DIST_POSE_ATOL or d_lm > DIST_POSE_ATOL
@@ -621,17 +717,16 @@ def main(argv=None) -> int:
     devs, card = phase_device(4 if args.four_cards else 1)
     enable_compile_cache()
     cfg = tum_fr1_config()
-    if args.four_cards:
-        phase_four_cards(cfg, devs[:4])
-    else:
-        with tempfile.TemporaryDirectory() as work:
+    with tempfile.TemporaryDirectory() as work:
+        if args.four_cards:
+            phase_four_cards(cfg, devs[:4], work)
+        else:
             dataset, _ = phase_main_path(work, card)
             phase_vo_and_lc(work, dataset, card)
-            with open(os.path.join(dataset, "camera.json")) as f:
-                cam = dataclasses.replace(cfg.camera, **json.load(f))
+            cfg, st = engine_state(cfg, dataset)
             frame = tum.TumDataset(dataset)[0]
-        phase_numerics(cfg.replace(camera=cam), frame.gray, frame.depth,
-                       devs[0], jax.devices("cpu")[0])
+            phase_numerics(cfg, frame.gray, frame.depth, st, devs[0],
+                           jax.devices("cpu")[0])
     d = devs[0]
     print(json.dumps({"ok": True, "device": {
         "platform": d.platform, "kind": d.device_kind, "count": len(devs)}}))

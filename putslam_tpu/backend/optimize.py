@@ -388,25 +388,45 @@ def schur_subtrahend_mm(obs_kf, obs_lm, F, K: int, L: int):
         G[a, 6k+i, l] = Σ_m P[m,k]·F[m,i,a]·Q[m,l]   (one-hot expansion)
         S_sub         = Σ_a G_a·G_aᵀ                  (batched over a)
 
-    Everything flows in bf16 with the *entries* exact to bf16 precision —
-    each G entry is the sum of the ≤1 observation a (keyframe, landmark)
-    pair has — and the S accumulation is f32. Curvature only shapes the
-    Gauss-Newton step direction; callers keep the gradient in exact f32,
-    which pins the fixed point (see gauss_newton_mm)."""
+    Both products run on bf16 operands with f32 accumulation, each f32
+    operand split into a bf16 head and tail (x = hi + lo, ~16 significant
+    bits): G from two passes (the one-hot factors are exact in bf16),
+    G·Gᵀ from three (hi·hi + hi·lo + lo·hi). One bf16 pass is not enough:
+    S = H_cc − S_sub cancels in the weakly constrained directions of a
+    long keyframe chain, and the ~0.4 % error of bf16 entries stalls or
+    reverses the step there (the scatter oracle in f32 converges)."""
     M = F.shape[0]
     Pb = jax.nn.one_hot(obs_kf, K, dtype=jnp.bfloat16)          # (M, K)
     Qb = jax.nn.one_hot(obs_lm, L, dtype=jnp.bfloat16)          # (M, L)
-    Fp = jnp.swapaxes(F, 1, 2).astype(jnp.bfloat16)             # (M, 3, 6)
-    A = (Pb[:, None, :] * Fp.reshape(M, 18, 1)).reshape(M, 18 * K)
-    Gp = jax.lax.dot_general(
-        A, Qb, dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.bfloat16)                     # (18K, L)
-    Ga = Gp.reshape(3, 6 * K, L)
-    Sik = jax.lax.dot_general(
-        Ga, Ga, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                      # (3, 6K, 6K)
+    Fp = jnp.swapaxes(F, 1, 2)                                  # (M, 3, 6)
+
+    def expand(f):                                              # (18K, L)
+        A = (Pb[:, None, :] * f.reshape(M, 18, 1)).reshape(M, 18 * K)
+        return jax.lax.dot_general(
+            A, Qb, dimension_numbers=(((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
+
+    def outer(a, b):                                            # (3, 6K, 6K)
+        return jax.lax.dot_general(
+            a, b, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+            preferred_element_type=jnp.float32)
+
+    f_hi, f_lo = _split_bf16(Fp)
+    Gp = expand(f_hi) + expand(f_lo)
+    g_hi, g_lo = _split_bf16(Gp.reshape(3, 6 * K, L))
+    Sik = outer(g_hi, g_hi) + outer(g_hi, g_lo) + outer(g_lo, g_hi)
     S_ik = jnp.sum(Sik, axis=0)
     return S_ik.reshape(6, K, 6, K).transpose(1, 0, 3, 2).reshape(K * 6, K * 6)
+
+
+def _split_bf16(x):
+    """f32 ``x`` as bf16 ``(hi, lo)`` with ``hi + lo ≈ x`` to ~16 bits.
+
+    The head is rounded with ``reduce_precision``: XLA may drop an
+    f32 → bf16 → f32 round trip as excess precision (the GPU compiler
+    does), which would leave ``lo`` zero and the split a single pass."""
+    hi = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
+    return hi.astype(jnp.bfloat16), (x - hi).astype(jnp.bfloat16)
 
 
 @functools.partial(jax.jit, static_argnums=(0,), static_argnames=("cam",))
@@ -430,12 +450,12 @@ def gauss_newton_mm(bcfg: BackendConfig,
     G' = Aᵀ·Q with P/Q the keyframe/landmark one-hot operators — and the
     Schur subtrahend is a single product S_sub = G·Gᵀ.
 
-    Precision contract: S (curvature) is accumulated from bfloat16 inputs
-    in float32 — it only shapes the step *direction*. The gradient b is
-    computed exactly in float32 through per-observation products, so the
-    Gauss-Newton fixed point (b → 0) is unchanged; bf16 curvature error
-    (~0.4 %) only perturbs the path, an inexact-Newton step the damping
-    absorbs. (Same trade g2o makes with its PCG tolerance.)
+    Precision contract: S (curvature) is accumulated in float32 from
+    split-bf16 operands (~16 significant bits, see schur_subtrahend_mm).
+    The gradient b is computed exactly in float32 through per-observation
+    products and HIGHEST-precision one-hot sums, so the Gauss-Newton fixed
+    point (b → 0) is unchanged; the curvature's rounding only perturbs the
+    step direction, an inexact-Newton step the damping absorbs.
     """
     K = kf_pose.shape[0]
     L = lm_pos.shape[0]

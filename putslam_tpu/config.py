@@ -220,7 +220,8 @@ class BackendConfig:
     # "dense_schur_mm" (default) — matmul formulation: the whitened
     #   coupling G is built by one-hot matmuls and the Schur subtrahend is a
     #   single G·Gᵀ product; no (K, L) scatter exists. Curvature accumulates
-    #   from bf16 in f32 — the f32-exact gradient pins the fixed point.
+    #   in f32 from split-bf16 operands; the f32-exact gradient pins the
+    #   fixed point.
     # "dense_schur" — scatter-based f32 reference implementation.
     # "pcg" — matrix-free block-Jacobi CG (the reference's LinearSolverPCG
     #   architecture, graph_g2o.cpp:35 — for maps too large to densify).

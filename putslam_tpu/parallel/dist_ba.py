@@ -2,9 +2,9 @@
 
 The reference has no distributed story (single process, SURVEY §2); this is
 the scaling path for maps beyond one device: landmarks are
-partitioned into contiguous blocks across the mesh, every device assembles
-the Hessian contribution of *its* landmark block, and the reduced camera
-system is formed by a ``psum`` of per-block Schur products:
+partitioned across the mesh, every device assembles the Hessian
+contribution of *its* landmark block, and the reduced camera system is
+formed by a ``psum`` of per-block Schur products:
 
     S = H_cc − Σ_d  H_cl^(d) · blkdiag(H_ll^(d)⁻¹) · H_cl^(d)ᵀ
 
@@ -13,16 +13,17 @@ The (K·6)² reduced system is then solved identically on every device
 landmark block. Per-device memory and the dominant matmul scale as 1/ndev;
 the all-reduce payload is the (K·6)² matrix, independent of the map size.
 
-Observation ownership: landmark block = index ÷ (L/ndev). The edge store is
-*partitioned by owner* before the shard_map — each device receives only a
-(2·M/ndev)-slot slice holding its own edges (stable argsort by owner, one
-gather), so per-device assembly work, the per-observation einsums, AND the
-one-hot Schur coupling all scale as 1/ndev, not just the Schur product. A
-device owning more than its 2× slack slice drops the overflow edges from
-that call (the partition is near-balanced by construction — landmark slots
-are allocated round-robin); ``partition_overflow`` reports the dropped
-count for observability. Pose-pose edges are assembled on device 0
-(K-sized, tiny) and psum'd.
+Observation ownership: landmark slot l lives on device l mod ndev, at row
+l ÷ ndev of its block. The engine allocates slots from 0 upward, so
+contiguous blocks would put a young map on device 0 alone; the strided
+assignment spreads it. The edge store is *partitioned by owner* before the
+shard_map — each device receives only a (2·M/ndev)-slot slice holding its
+own edges (stable argsort by owner, one gather), so per-device assembly
+work, the per-observation einsums, AND the one-hot Schur coupling all scale
+as 1/ndev, not just the Schur product. A device owning more than its 2×
+slack slice drops the overflow edges from that call;
+``partition_overflow`` reports the dropped count for observability.
+Pose-pose edges are assembled on device 0 (K-sized, tiny) and psum'd.
 """
 
 from __future__ import annotations
@@ -43,7 +44,16 @@ from putslam_tpu.geometry import se3
 from putslam_tpu.geometry.uncertainty import chol3x3, inv3x3
 
 
-def partition_overflow(g: GraphState, ndev: int, L: int) -> int:
+def owner_counts(g: GraphState, ndev: int):
+    """Valid edges owned by each of ``ndev`` devices (numpy, (ndev,))."""
+    import numpy as np
+
+    owner = np.where(np.asarray(g.obs_valid), np.asarray(g.obs_lm) % ndev,
+                     ndev)
+    return np.bincount(owner, minlength=ndev + 1)[:ndev]
+
+
+def partition_overflow(g: GraphState, ndev: int) -> int:
     """Edges dropped by the 2×-slack owner partition for this graph state
     (0 in balanced conditions) — host-side pre-check mirroring the in-jit
     ``overflow`` output of ``dist_gauss_newton`` (same formula); use it to
@@ -51,13 +61,9 @@ def partition_overflow(g: GraphState, ndev: int, L: int) -> int:
     skewed edge distribution."""
     import numpy as np
 
-    Ls = L // ndev
     M = g.obs_kf.shape[0]
     Ms = min(M, max(8, (2 * M) // ndev))
-    owner = np.where(np.asarray(g.obs_valid),
-                     np.asarray(g.obs_lm) // Ls, ndev)
-    counts = np.bincount(owner, minlength=ndev + 1)[:ndev]
-    return int(np.maximum(counts - Ms, 0).sum())
+    return int(np.maximum(owner_counts(g, ndev) - Ms, 0).sum())
 
 
 @functools.partial(jax.jit, static_argnums=(0, 1), static_argnames=("cam",))
@@ -91,7 +97,7 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh: Mesh,
     # owner + one gather) so each device ships and scans only its slice ---
     M = g.obs_kf.shape[0]
     Ms = min(M, max(8, (2 * M) // ndev))            # 2× slack per device
-    owner = jnp.where(g.obs_valid, g.obs_lm // Ls, ndev)
+    owner = jnp.where(g.obs_valid, g.obs_lm % ndev, ndev)
     order = jnp.argsort(owner, stable=True).astype(jnp.int32)
     counts = jnp.bincount(owner, length=ndev + 1)[:ndev]        # (ndev,)
     overflow = jnp.sum(jnp.maximum(counts - Ms, 0)).astype(jnp.int32)
@@ -111,7 +117,7 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh: Mesh,
     p_gen = _part(g.obs_gen)
     p_kfgen = _part(g.obs_kfgen)
     p_info = _part(g.obs_info)
-    p_lm_local = _part(g.obs_lm) - (jnp.arange(ndev)[:, None] * Ls)
+    p_lm_local = _part(g.obs_lm) // ndev
     p_valid = inb & _part(g.obs_valid)
 
     def body(kf_pose, lm_pos_l, lm_valid_l, lm_gen_l,
@@ -254,15 +260,20 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh: Mesh,
                   P(), P(), P(), P()),
         out_specs=(P(), P(axis), P()),
     )
+    def to_blocks(x):
+        """Slot order → owner blocks: row d·Ls + j holds slot j·ndev + d."""
+        return jax.device_put(
+            x.reshape((Ls, ndev) + x.shape[1:]).swapaxes(0, 1).reshape(
+                x.shape), lm_sharding)
+
     kf_out, lm_out, chi2s = sharded(
         jax.device_put(kf_pose, repl),
-        jax.device_put(lm_pos, lm_sharding),
-        jax.device_put(lm_valid, lm_sharding),
-        jax.device_put(lm_gen, lm_sharding),
+        to_blocks(lm_pos), to_blocks(lm_valid), to_blocks(lm_gen),
         p_kf, p_lm_local, p_xyz, p_w, p_gen, p_kfgen, p_info, p_valid,
         jax.device_put(g, repl),
         jax.device_put(fixed_kf, repl),
         jax.device_put(kf_valid, repl),
         jax.device_put(kf_gen, repl),
     )
+    lm_out = lm_out.reshape(ndev, Ls, 3).swapaxes(0, 1).reshape(L, 3)
     return kf_out, lm_out, chi2s, overflow

@@ -188,7 +188,7 @@ def joint_optimize(cfg: SlamConfig, mesh, merged: MergedProblem,
     chi2).
 
     Merged multi-session graphs are exactly the case where landmark ids may
-    NOT be round-robin balanced, so the dist solver's owner-partition
+    be skewed across the devices, so the dist solver's owner-partition
     overflow is checked: if any edges would be dropped by the 2×-slack
     partition, the solve falls back to the single-device full solver
     (correctness over scaling) with a warning."""
@@ -210,7 +210,7 @@ def joint_optimize(cfg: SlamConfig, mesh, merged: MergedProblem,
         warnings.warn(
             f"dist-BA owner partition dropped {int(overflow)} edges on the "
             f"merged graph (skewed landmark ownership); re-solving on one "
-            f"device for correctness. Rebalance landmark ids across blocks "
+            f"device for correctness. Rebalance landmark ids across devices "
             f"to restore the sharded path.", stacklevel=2)
         res = opt_mod.gauss_newton_mm(
             cfg.backend, merged.kf_pose, merged.kf_valid, merged.lm_pos,

@@ -23,6 +23,48 @@ import time
 import numpy as np
 
 
+def load_dataset(cfg, path: str, max_frames: int = 0):
+    """A TUM-layout sequence in the wire format the scan takes (uint8 gray,
+    uint16 depth: the PNG payloads; the cast to float happens on the device
+    per chunk), decoded by the native threaded loader where it loads.
+
+    A dataset's own camera.json (written by tools/make_disk_dataset)
+    overrides the config camera: the engine must not undistort pixels of a
+    sequence rendered without distortion.
+
+    Returns (cfg, dataset, grays (T, H, W), depths (T, H, W), timestamps
+    (T,), per-frame ground truth (T, 7) when its timestamps line up with the
+    frames exactly, else None)."""
+    from putslam_tpu.io import tum
+
+    cam_json = os.path.join(path, "camera.json")
+    if os.path.exists(cam_json):
+        with open(cam_json) as f:
+            cfg = cfg.replace(camera=dataclasses.replace(
+                cfg.camera, **json.load(f)))
+    ds = tum.TumDataset(path, depth_scale=cfg.camera.depth_image_scale)
+    n = len(ds) if not max_frames else min(len(ds), max_frames)
+    grays = np.empty((n, cfg.camera.height, cfg.camera.width), np.uint8)
+    depths = np.empty_like(grays, dtype=np.uint16)
+    timestamps = np.empty((n,), np.float64)
+    scale = cfg.camera.depth_image_scale
+    for i, f in enumerate(ds):
+        if i >= n:
+            break
+        grays[i] = np.clip(f.gray * 255.0 + 0.5, 0, 255)
+        depths[i] = np.clip(f.depth * scale + 0.5, 0, 65535)
+        timestamps[i] = f.timestamp
+    gt_poses = None
+    if ds.groundtruth is not None:
+        gt_ts, gt_all = ds.groundtruth
+        # per-frame GT when timestamps line up exactly (our materialized
+        # synthetic sequences) — enables the frame-aligned report alongside
+        # the associated-timestamp eval
+        if len(gt_ts) >= n and np.allclose(gt_ts[:n], timestamps, atol=1e-6):
+            gt_poses = gt_all[:n]
+    return cfg, ds, grays, depths, timestamps, gt_poses
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dataset", help="TUM-format sequence directory")
@@ -98,39 +140,9 @@ def main(argv=None) -> int:
             gt_poses = np.asarray(poses)
             timestamps = np.arange(len(grays)) / 30.0
     elif args.dataset:
-        # a dataset's own camera.json (written by tools/make_disk_dataset)
-        # overrides the config camera — the engine must not undistort
-        # pixels of a sequence rendered without distortion
-        cam_json = os.path.join(args.dataset, "camera.json")
-        if os.path.exists(cam_json):
-            with open(cam_json) as f:
-                cfg = cfg.replace(camera=dataclasses.replace(
-                    cfg.camera, **json.load(f)))
         with timer.stage("dataset"):
-            ds = tum.TumDataset(args.dataset,
-                                depth_scale=cfg.camera.depth_image_scale)
-            n = len(ds) if not args.max_frames else min(len(ds), args.max_frames)
-            # stream through the native threaded loader; store the wire
-            # format (uint8 gray / uint16 depth = the PNG payloads) — cast
-            # to float happens on-device per chunk
-            grays = np.empty((n, cfg.camera.height, cfg.camera.width), np.uint8)
-            depths = np.empty_like(grays, dtype=np.uint16)
-            timestamps = np.empty((n,), np.float64)
-            scale = cfg.camera.depth_image_scale
-            for i, f in enumerate(ds):
-                if i >= n:
-                    break
-                grays[i] = np.clip(f.gray * 255.0 + 0.5, 0, 255)
-                depths[i] = np.clip(f.depth * scale + 0.5, 0, 65535)
-                timestamps[i] = f.timestamp
-            if ds.groundtruth is not None:
-                gt_ts, gt_all = ds.groundtruth
-                # per-frame GT when timestamps line up exactly (our
-                # materialized synthetic sequences) — enables the frame-
-                # aligned report alongside the associated-timestamp eval
-                if (len(gt_ts) >= n and
-                        np.allclose(gt_ts[:n], timestamps, atol=1e-6)):
-                    gt_poses = gt_all[:n]
+            cfg, ds, grays, depths, timestamps, gt_poses = load_dataset(
+                cfg, args.dataset, args.max_frames)
     else:
         ap.error("need --dataset or --synthetic N")
 
@@ -192,8 +204,9 @@ def main(argv=None) -> int:
         # the first chunk includes compiling the scan; the rest are steady
         report["first_chunk_s"] = chunks[0]
     if len(chunks) > 1:
-        report["steady_fps"] = (args.chunk or 64) * (len(chunks) - 1) \
-            / sum(chunks[1:])
+        # real frames only: the tail chunk is padded to the chunk size
+        report["steady_fps"] = (sum(timer.items["slam_chunk"][1:])
+                                / sum(chunks[1:]))
     if gt_poses is not None:
         report["ate_rmse_m"] = round(
             ate_mod.ate_rmse_aligned_frames(gt_poses, est), 5)
@@ -205,7 +218,8 @@ def main(argv=None) -> int:
         tr, rot = rpe_mod.rpe(gt_poses, est)
         report["rpe_trans_m"] = round(tr, 5)
         report["rpe_rot_rad"] = round(rot, 5)
-    elif args.dataset and 'gt_all' in dir():
+    elif args.dataset and ds.groundtruth is not None:
+        gt_ts, gt_all = ds.groundtruth
         report["ate_rmse_m"] = round(
             ate_mod.ate_rmse(gt_ts, gt_all, ts, est), 5)
 

@@ -22,18 +22,23 @@ from typing import Dict, List
 
 
 class StageTimer:
-    """Accumulates wall-clock samples per named stage."""
+    """Accumulates wall-clock samples per named stage, and optionally how
+    many items (frames, say) each sample handled: ``items[name][i]`` belongs
+    to ``samples[name][i]`` when every sample of the stage gave a count."""
 
     def __init__(self) -> None:
         self.samples: Dict[str, List[float]] = defaultdict(list)
+        self.items: Dict[str, List[int]] = defaultdict(list)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, items: int | None = None):
         t0 = time.perf_counter()
         try:
             yield
         finally:
             self.samples[name].append(time.perf_counter() - t0)
+            if items is not None:
+                self.items[name].append(items)
 
     def add(self, name: str, seconds: float) -> None:
         self.samples[name].append(seconds)

@@ -21,10 +21,11 @@ import pytest
 import chip_smoke
 from putslam_tpu import config
 from putslam_tpu.config import tiny_test_config
-from putslam_tpu.utils import device
+from putslam_tpu.utils import device, timing
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NO_BOUND = {"slam": np.inf, "vo": np.inf, "lc": np.inf}
+TINY_FRAMES = 9
 
 
 @pytest.mark.parametrize("env_dir", [None, "elsewhere"])
@@ -77,40 +78,96 @@ def _tiny(monkeypatch):
                         lambda **kw: tiny_test_config().replace(**kw))
 
 
-def test_main_path_and_variants_tiny(monkeypatch, tmp_path):
-    _tiny(monkeypatch)
-    frames = 9
-    dataset, rep = chip_smoke.phase_main_path(str(tmp_path), "cpu", frames,
-                                              bound=np.inf)
-    vo, lc = chip_smoke.phase_vo_and_lc(str(tmp_path), dataset, "cpu",
-                                        frames, bounds=NO_BOUND)
-    for r in (rep, vo, lc):
-        assert r["platform"] == "cpu" and r["frames"] == frames
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """Phases 2 and 3 at tiny size: (work dir, dataset, the three
+    run.main reports)."""
+    work = tmp_path_factory.mktemp("smoke")
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny(mp)
+        dataset, rep = chip_smoke.phase_main_path(str(work), "cpu",
+                                                  TINY_FRAMES, bound=np.inf)
+        vo, lc = chip_smoke.phase_vo_and_lc(str(work), dataset, "cpu",
+                                            TINY_FRAMES, bounds=NO_BOUND)
+    return work, dataset, (rep, vo, lc)
+
+
+def test_main_path_and_variants_tiny(tiny_run):
+    work, _, reports = tiny_run
+    for r in reports:
+        assert r["platform"] == "cpu" and r["frames"] == TINY_FRAMES
         assert np.isfinite(r["ate_rmse_m"]) and r["ate_rmse_m"] < 0.5
-    assert (tmp_path / "out_lc" / "graph_trajectory.res").exists()
+    assert (work / "out_lc" / "graph_trajectory.res").exists()
 
 
-def test_numerics_phase_tiny():
-    from putslam_tpu.io import synthetic
+def test_steady_fps_counts_real_frames(tiny_run, monkeypatch, tmp_path,
+                                       capsys):
+    """A chunk size that pads the tail (8 steps in chunks of 3: 3, 3, 2+1
+    padded): each chunk records its real frames, and steady_fps divides the
+    real frames of the chunks after the first by their time."""
+    from putslam_tpu import run
 
-    cfg = tiny_test_config()
-    poses = synthetic.orbit_trajectory(1, radius=0.1, yaw_amp=0.1)
-    grays, depths = synthetic.render_sequence(cfg.camera, poses)
+    timers = []
+
+    class Recorder(timing.StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    monkeypatch.setattr(timing, "StageTimer", Recorder)
+    _tiny(monkeypatch)
+    rc = run.main(["--dataset", tiny_run[1], "--out", str(tmp_path),
+                   "--chunk", "3"])
+    assert rc == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    (timer,) = timers
+    assert timer.items["slam_chunk"] == [3, 3, 2]
+    secs = timer.samples["slam_chunk"]
+    assert len(secs) == 3
+    assert report["steady_fps"] == pytest.approx(5 / sum(secs[1:]))
+
+
+def test_numerics_phase_tiny(tiny_run):
+    _, dataset, _ = tiny_run
+    from putslam_tpu.io import tum
+
+    cfg, st = chip_smoke.engine_state(tiny_test_config(), dataset)
+    frame = tum.TumDataset(dataset)[0]
     cpu = jax.devices()
-    chip_smoke.phase_numerics(cfg, np.asarray(grays[0]),
-                              np.asarray(depths[0]), cpu[0], cpu[1])
+    chip_smoke.phase_numerics(cfg, frame.gray, frame.depth, st, cpu[0],
+                              cpu[1])
 
 
-def test_four_card_phase_on_virtual_devices():
+def test_four_card_phase_on_virtual_devices(monkeypatch, tmp_path):
     """At the production solver, as tum_fr1_config() has it (the tiny
-    config's scatter solver would compare f32 with bf16 curvature)."""
+    config's scatter solver would compare the oracle with itself)."""
     import dataclasses
 
+    _tiny(monkeypatch)
     cfg = tiny_test_config()
     cfg = cfg.replace(backend=dataclasses.replace(cfg.backend,
                                                   solver="dense_schur_mm"))
-    chip_smoke.phase_four_cards(cfg, jax.devices()[:4], frames=12,
-                                vo_frames=6)
+    chip_smoke.phase_four_cards(cfg, jax.devices()[:4], str(tmp_path),
+                                frames=TINY_FRAMES, vo_frames=6)
+
+
+def test_ba_check_on_a_chain_with_four_views():
+    """dense_schur_mm lands where the scatter oracle lands on a 128-keyframe
+    chain whose landmarks are each seen by 4 keyframes (one bf16 pass of
+    the Schur curvature stalled here 3 cm away, chi² 1 % high)."""
+    import dataclasses
+
+    cfg = tiny_test_config()
+    K, L, M, E = 128, 4096, 4096, 256
+    _, kf, _, lm, lm_valid, g = chip_smoke.make_graph(K, L, M, E, 2048,
+                                                      np.array([4]))
+    bcfg = dataclasses.replace(cfg.backend, gn_iterations=12, ba_window=0,
+                               ba_lm_block=2048, robust_kernel="none")
+    chip_smoke.compare_solvers(
+        "chain", bcfg,
+        (jnp.asarray(kf), jnp.ones((K,), bool), jnp.asarray(lm),
+         jnp.asarray(lm_valid), g, jnp.zeros((K,), bool).at[0].set(True)),
+        {}, jax.devices()[0])
 
 
 def _dots(jaxpr):
@@ -137,7 +194,8 @@ def test_gauss_newton_mm_pins_highest_on_onehot_dots():
     cfg = tiny_test_config()
     K, L = cfg.map.max_keyframes, cfg.map.max_landmarks
     M, E = cfg.backend.max_observations, cfg.backend.max_pose_pose_edges
-    _, kf, _, lm, lm_valid, g = chip_smoke.make_graph(K, L, M, E)
+    _, kf, _, lm, lm_valid, g = chip_smoke.make_graph(K, L, M, E, 256,
+                                                      np.array([2, 3, 4]))
     bcfg = dataclasses.replace(cfg.backend, ba_window=8, ba_lm_block=256)
     jaxpr = jax.make_jaxpr(
         lambda *a: opt.gauss_newton_mm(bcfg, *a))(

@@ -242,9 +242,10 @@ def test_reprojection_weights_are_pixel_based(rng):
 
 
 def test_solvers_agree(rng):
-    """The matmul-formulated dense Schur (one-hot matmuls, bf16 curvature) must
-    reproduce the scatter-based f32 path and the matrix-free PCG path on the
-    same problem — same chi² trajectory, same solution."""
+    """The matmul-formulated dense Schur (one-hot matmuls, split-bf16
+    curvature) must reproduce the scatter-based f32 path and the
+    matrix-free PCG path on the same problem — same chi² trajectory, same
+    solution."""
     (kf0, kf_gt, kf_valid, lm0, lm_gt, lm_valid, g, fixed) = \
         _toy_ba_problem(rng, noise=0.01)
     cfg = tiny_test_config()
@@ -262,6 +263,24 @@ def test_solvers_agree(rng):
         chi_ref = float(sols["dense_schur"].chi2[-1])
         chi = float(sols[solver].chi2[-1])
         assert abs(chi - chi_ref) < 0.02 * max(chi_ref, 1e-6), solver
+
+
+def test_schur_subtrahend_mm_matches_f32(rng):
+    """The matmul Schur subtrahend agrees with the same products in f32 to
+    ~16 significant bits (split-bf16 operands), not the ~8 of one bf16
+    pass, which stalls the solve on long keyframe chains."""
+    K, L, M = 6, 40, 160
+    obs_kf = jnp.asarray(rng.integers(0, K, M), jnp.int32)
+    obs_lm = jnp.asarray(rng.integers(0, L, M), jnp.int32)
+    F = jnp.asarray(rng.normal(size=(M, 6, 3)), jnp.float32)
+    got = np.asarray(opt.schur_subtrahend_mm(obs_kf, obs_lm, F, K, L))
+    G = np.zeros((K, 6, L, 3))
+    np.add.at(G, (np.asarray(obs_kf), slice(None), np.asarray(obs_lm)),
+              np.asarray(F, np.float64))
+    G = G.reshape(K * 6, L * 3)
+    want = G @ G.T
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 1e-4, err
 
 
 # ---------------------------------------------------------------------------

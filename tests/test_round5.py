@@ -39,7 +39,7 @@ def test_finalize_dist_matches_single_device():
     kv = np.asarray(st.map.kf_valid)
     a = np.asarray(st_single.map.kf_pose)[kv]
     b = np.asarray(st_dist.map.kf_pose)[kv]
-    # bf16 Schur curvature vs f32 scatter path: direction-only drift
+    # split-bf16 Schur curvature vs f32 scatter path: direction-only drift
     np.testing.assert_allclose(a, b, atol=5e-3)
 
 
